@@ -1,0 +1,21 @@
+"""liquiddsp_tpu_torch: the PyTorch/CUDA port of the flexframe PHY.
+
+A second package beside the JAX package ``liquiddsp_tpu``, which stays the
+reference. This package imports ``torch`` and numpy only. Its kernels are
+CUDA C++ sources under ``csrc/``, compiled with ``nvcc`` for ``sm_90a`` at
+first use (``kernels/_cuda.py``); each has a plain PyTorch version beside it
+that is taken only for tensors that lie on the CPU.
+
+Ported so far: the single-device block receiver, TX ``phy.framegen.framegen``
+-> RX ``phy.framesync.framesync_fixed``. Entry points run on the GPU unless
+the caller passes ``device="cpu"``.
+"""
+
+from liquiddsp_tpu_torch.core.config import (  # noqa: F401
+    FrameConfig,
+    InnerCode,
+    Modulation,
+    OuterCode,
+)
+
+__version__ = "0.1.0"

@@ -1,0 +1,140 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. At first use they are
+compiled with ``nvcc`` for ``sm_90a`` (one compile per source, all started
+together), linked into one shared library under ``_build/`` and loaded with
+``ctypes``. Nothing is built when a module is imported, and nothing gives way
+to a plain PyTorch version when a build or a launch fails: it raises.
+
+Each C entry point launches on the stream it is handed, does not synchronise,
+allocates nothing and returns ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("correlator.cu", "extract.cu", "recover.cu", "viterbi.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# launches per kernel since the last reset; a wrapper adds one where it
+# launches its kernel and nowhere else
+LAUNCHES: dict[str, int] = {"correlator": 0, "extract": 0, "recover": 0, "viterbi": 0}
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # x, templates, rho2, fbin, corr, energy, B, T, inv_es, stream
+    "lq_correlate_reduced": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
+    # x, starts, wr, wi, B, T, K, n, stream
+    "lq_extract_windows": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # wr, wi, dphi, phi, gamma, taps, y, B*K, n, n_syms, stream
+    "lq_recover_symbols": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # lam, signs, dec, bits, B, steps, stream
+    "lq_viterbi": [_vp, _vp, _vp, _vp, _i, _i, _vp],
+}
+
+_lib: ctypes.CDLL | None = None
+build_log: list[str] = []  # compiler output of the last build, one entry per source
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if not cand.exists():
+            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        exe = str(cand)
+    return exe
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``_build/libliquiddsp_kernels_<hash>.so``
+    and return its path. A library whose name carries the hash of the current
+    sources is reused. The compiler's output (registers, shared memory and
+    spills of each kernel) is kept in ``build_log``."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    lib_path = BUILD_DIR / f"libliquiddsp_kernels_{h.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in SOURCES:
+        obj = BUILD_DIR / (name + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs, failed = [], []
+    build_log.clear()
+    for name, obj, p in procs:
+        out, _ = p.communicate()
+        build_log.append(f"== {name}\n{out}")
+        if p.returncode != 0:
+            failed.append(f"nvcc failed on {name}:\n{out}")
+        objs.append(str(obj))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        loaded = ctypes.CDLL(str(build()))
+        for fn, argtypes in _ARGTYPES.items():
+            getattr(loaded, fn).argtypes = argtypes
+            getattr(loaded, fn).restype = ctypes.c_int
+        _lib = loaded
+    return _lib
+
+
+def launch(kernel: str, fn: str, device: torch.device, *args) -> None:
+    """Call C entry point ``fn`` on PyTorch's current stream of ``device``,
+    raise on a refused launch, and count one launch of ``kernel``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib(), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error code {rc}")
+    LAUNCHES[kernel] += 1
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")

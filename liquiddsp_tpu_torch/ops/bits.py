@@ -1,0 +1,22 @@
+"""Byte <-> bit packing helpers (MSB-first), batched."""
+
+from __future__ import annotations
+
+import torch
+
+
+def bytes_to_bits(b: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., L] -> int8 bits [..., 8L], MSB first."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=b.device)
+    bits = (b.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(b.shape[:-1] + (b.shape[-1] * 8,)).to(torch.int8)
+
+
+def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
+    """int bits [..., 8L] -> uint8 [..., L], MSB first."""
+    shape = bits.shape[:-1] + (bits.shape[-1] // 8, 8)
+    weights = torch.tensor(
+        [128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=bits.device
+    )
+    v = torch.sum(bits.reshape(shape).to(torch.int32) * weights, dim=-1)
+    return v.to(torch.uint8)

@@ -1,0 +1,136 @@
+"""Systematic GF(2) linear block codes: the extended Golay(24,12) code.
+
+Counterpart of ``liquiddsp_tpu/ops/fec/block.py``. ``LinearBlockCode`` is
+generic over G = [I_k | P]; only the Golay constructor is ported so far (the
+header always uses it, and it is outer code 1). The Hamming / SEC-DED
+constructors wait; ``registry`` carries their (n, k) for frame geometry.
+
+Encode is a bit-level product with the parity matrix P (``m @ P mod 2`` in
+float32, exact since row sums are tiny); Golay decode is the arithmetic
+table-free decoder on packed 12-bit syndromes.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from liquiddsp_tpu_torch.core.device import device_const
+
+
+def _golay_b_matrix() -> np.ndarray:
+    """The 12x12 B matrix of the extended binary Golay [24,12,8] code.
+
+    Quadratic-residue construction: the 11x11 block is the circulant of the
+    indicator of {0} u QR(11) = {0,1,3,4,5,9}; bordered by a row/column of
+    ones with B[11,11] = 0.
+    """
+    qr = {0, 1, 3, 4, 5, 9}
+    b = np.zeros((12, 12), dtype=np.uint8)
+    for i in range(11):
+        for j in range(11):
+            b[i, j] = 1 if ((j - i) % 11) in qr else 0
+        b[i, 11] = 1
+    b[11, :11] = 1
+    b[11, 11] = 0
+    return b
+
+
+def _popcount12(v: torch.Tensor) -> torch.Tensor:
+    """Population count of int32 values below 2^12 (SWAR; torch has no
+    popcount on tensors)."""
+    v = v - ((v >> 1) & 0x555)
+    v = (v & 0x333) + ((v >> 2) & 0x333)
+    v = (v + (v >> 4)) & 0x70F
+    return (v + (v >> 8)) & 0xF
+
+
+def _decode_golay_packed(s: torch.Tensor) -> torch.Tensor:
+    """Arithmetic extended-Golay decoder: packed 12-bit syndrome [...] int32
+    -> packed 12-bit DATA error pattern e_u (parity errors never touch data).
+
+    The standard table-free decoder, valid because G = [I | B] is self-dual
+    (B B^T = I mod 2): with e = [e_u | e_v] and s = e_u B xor e_v, exactly
+    one of 26 candidates covers every coset of weight <= 3 —
+      wt(s) <= 3                 -> e_u = 0
+      wt(s ^ B_i) <= 2           -> e_u = delta_i          (B_i = row i of B)
+      t = s B^T: wt(t) <= 3      -> e_u = t
+      wt(t ^ Bcol_i) <= 2        -> e_u = t ^ Bcol_i       (e_v = delta_i)
+    Distinct weight-<=3 patterns have distinct syndromes (d_min = 8), so the
+    branch that fires is unique; weight-4 cosets fire no branch and return 0.
+    """
+    b = _golay_b_matrix().astype(np.int64)
+    row_pk = [int(v) for v in b @ (1 << np.arange(12))]  # rows of B, packed
+    col_pk = [int(v) for v in b.T @ (1 << np.arange(12))]  # cols of B, packed
+    pc = _popcount12
+
+    done = pc(s) <= 3
+    e_u = torch.zeros_like(s)
+    for i in range(12):
+        hit = (~done) & (pc(s ^ row_pk[i]) <= 2)
+        e_u = torch.where(hit, 1 << i, e_u)
+        done = done | hit
+    # t = s B^T, bit j = parity of s & (row j of B)
+    t = torch.zeros_like(s)
+    for j in range(12):
+        t = t | ((pc(s & row_pk[j]) & 1) << j)
+    hit = (~done) & (pc(t) <= 3)
+    e_u = torch.where(hit, t, e_u)
+    done = done | hit
+    for i in range(12):
+        cand = t ^ col_pk[i]
+        hit = (~done) & (pc(cand) <= 2)
+        e_u = torch.where(hit, cand, e_u)
+        done = done | hit
+    return e_u
+
+
+class LinearBlockCode:
+    """Systematic (n, k) binary code with G = [I_k | P], H = [P^T | I_{n-k}]."""
+
+    def __init__(self, name: str, p: np.ndarray):
+        self.name = name
+        self.p = p.astype(np.uint8)
+        self.k, self.r = p.shape
+        self.n = self.k + self.r
+
+    def _p(self, device: torch.device) -> torch.Tensor:
+        return device_const(
+            ("block_p", self.name), lambda: self.p.astype(np.float32), device
+        )
+
+    def encode(self, bits: torch.Tensor) -> torch.Tensor:
+        """bits [..., nblocks*k] int8 -> [..., nblocks*n] int8."""
+        shape = bits.shape[:-1] + (bits.shape[-1] // self.k, self.k)
+        m = bits.reshape(shape).to(torch.float32)
+        parity = torch.remainder(m @ self._p(bits.device), 2.0)
+        out = torch.cat([m, parity], dim=-1).to(torch.int8)
+        return out.reshape(bits.shape[:-1] + (shape[-2] * self.n,))
+
+    def decode(self, bits: torch.Tensor) -> torch.Tensor:
+        """bits [..., nblocks*n] int8 -> corrected data [..., nblocks*k] int8."""
+        if self.name != "golay2412":
+            raise NotImplementedError(
+                f"block decode of {self.name} is not ported yet"
+            )
+        dev = bits.device
+        weights = torch.tensor(
+            (1 << np.arange(self.r)).astype(np.int32), device=dev
+        )
+        shape = bits.shape[:-1] + (bits.shape[-1] // self.n, self.n)
+        c = bits.reshape(shape).to(torch.int32)
+        data, par = c[..., : self.k], c[..., self.k :]
+        syn = torch.remainder(data.to(torch.float32) @ self._p(dev), 2.0).to(torch.int32) ^ par
+        sidx = torch.sum(syn * weights, dim=-1).to(torch.int32)  # packed syndrome
+        e_u = _decode_golay_packed(sidx)
+        shifts = torch.arange(self.k, dtype=torch.int32, device=dev)
+        err = (e_u[..., None] >> shifts) & 1
+        corrected = (data ^ err).to(torch.int8)
+        return corrected.reshape(bits.shape[:-1] + (shape[-2] * self.k,))
+
+
+@functools.lru_cache(maxsize=None)
+def golay2412() -> LinearBlockCode:
+    return LinearBlockCode("golay2412", _golay_b_matrix())

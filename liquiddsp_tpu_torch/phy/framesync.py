@@ -1,0 +1,855 @@
+"""Frame synchronizer (RX): the reference's flex_rx / liquid flexframesync
+analog, block-dense.
+
+Counterpart of ``liquiddsp_tpu/phy/framesync.py``. A whole block [B, T] is
+processed at once:
+
+1. dense preamble detection over the block (phy/detector.py) -> top-K
+   candidate frame starts with tau/gamma/dphi/phi estimates;
+2. per-candidate frame extraction (kernels/extract.py);
+3. NCO derotation + gain normalization + matched filter with a
+   fractional-delay RRC bank (timing recovery) + k=2 decimation
+   (kernels/recover.py) -> symbol estimates;
+4. two-stage linear equalizer, carrier fit, header demod (QPSK) -> Golay
+   decode -> CRC24 -> header_valid + config fields;
+5. payload carrier tracking, soft demod -> deinterleave -> inner (Viterbi,
+   kernels/viterbi.py) -> outer decode -> CRC24 -> payload_valid.
+
+All shapes are fixed: [B, K] frame slots with validity masks.
+
+``framesync_fixed`` decodes payloads assuming one (mod, fec) config: the
+block receiver. Not ported yet, and raising ``NotImplementedError`` where
+reached: the sample-clock-drift (SFO) tracking path that the JAX package
+takes for frames of 2200 symbols and more. Not ported, and absent from the
+signatures: the ``equalize=False`` path, the genie and ablation hooks and
+``slip_retry``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from liquiddsp_tpu_torch.core.config import FrameConfig
+from liquiddsp_tpu_torch.core.device import device_const, resolve_device
+from liquiddsp_tpu_torch.kernels.extract import extract_windows
+from liquiddsp_tpu_torch.kernels.recover import recover_symbols_planes
+from liquiddsp_tpu_torch.ops import bits as bitops
+from liquiddsp_tpu_torch.ops import crc, modem, msequence, rrc
+from liquiddsp_tpu_torch.ops.fec import registry
+from liquiddsp_tpu_torch.ops.fec.block import golay2412
+from liquiddsp_tpu_torch.phy import frame_spec as fs
+from liquiddsp_tpu_torch.phy.detector import (
+    TEMPLATE_LEN,
+    Detections,
+    detect,
+    expj,
+    fine_cfo,
+)
+from liquiddsp_tpu_torch.phy.framegen import header_bytes_to_symbols
+from liquiddsp_tpu_torch.phy.tables import PhyTables, phy_tables
+
+NUM_TIMING_PHASES = 32
+SFO_AUTO_SYMS = 2200  # the JAX package tracks sample-clock drift from here on
+
+
+@dataclasses.dataclass
+class FrameResults:
+    """Per-candidate decode results, [B, K] slots (masked)."""
+
+    mask: torch.Tensor  # [B, K] bool — detection valid
+    header_valid: torch.Tensor  # [B, K] bool — header CRC passed
+    payload_valid: torch.Tensor  # [B, K] bool — payload CRC passed
+    modulation: torch.Tensor  # [B, K] int32 — from decoded header
+    inner_code: torch.Tensor  # [B, K] int32
+    outer_code: torch.Tensor  # [B, K] int32
+    payload_len: torch.Tensor  # [B, K] int32
+    header_user: torch.Tensor  # [B, K, 14] uint8
+    payload: torch.Tensor  # [B, K, payload_len] uint8
+    symbols: torch.Tensor  # [B, K, n_syms] complex64 — the constellation port
+    evm: torch.Tensor  # [B, K] float32 — header-symbol EVM (dB)
+    rssi: torch.Tensor  # [B, K] float32 — estimated gain (dB)
+    cfo: torch.Tensor  # [B, K] float32 — carrier offset estimate (rad/sample)
+    start: torch.Tensor  # [B, K] int32 — frame start sample
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        """Every field as a numpy array on the host."""
+        return {
+            f.name: getattr(self, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(self)
+        }
+
+
+# ---------------------------------------------------------------------------
+# candidate extraction + symbol recovery
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _timing_bank30() -> np.ndarray:
+    """Reversed 30-tap fractional-delay bank indexed by q = round(tau*P)+P/2.
+
+    Folds the integer base shift for negative tau into the filter itself
+    (one zero pad position), so symbol recovery needs no per-candidate
+    offsets: sym[s] = sum_v win[2s+v] * bank30[q, v]. bank30[q] is the
+    time-reversed bank[p] (p = q - P/2, wrapped as in the classic convolve
+    formulation) placed at offset ``base``.
+    """
+    p_half = NUM_TIMING_PHASES // 2
+    bank = rrc.fractional_delay_bank(NUM_TIMING_PHASES)  # [P, 29]
+    out = np.zeros((NUM_TIMING_PHASES + 1, fs.PULSE_LEN + 1), dtype=np.float32)
+    for q in range(NUM_TIMING_PHASES + 1):
+        p = q - p_half
+        base = 1 if p < 0 else 0
+        pp = p + NUM_TIMING_PHASES if p < 0 else p
+        out[q, base : base + fs.PULSE_LEN] = bank[pp][::-1]
+    return out
+
+
+def _candidate_taps30(det: Detections, bank30: torch.Tensor) -> torch.Tensor:
+    """Per-candidate 30-tap matched-filter rows [B, K, 30]: the detector's
+    tau is "signal arrives tau samples late", so sampling on the fixed even
+    decimation grid must be *advanced* by tau, which the bank's
+    delay-indexed rows express as row -tau."""
+    p_half = NUM_TIMING_PHASES // 2
+    q = torch.clamp(
+        torch.round(-det.tau * NUM_TIMING_PHASES).to(torch.int64), -p_half, p_half
+    ) + p_half
+    return bank30[q]
+
+
+def recover_candidates(
+    x: torch.Tensor, det: Detections, n_syms: int, tables: PhyTables
+) -> tuple[Detections, torch.Tensor]:
+    """Stages 2-3: one window extraction serves both the fine CFO estimate
+    (from the preamble prefix of each frame window) and symbol recovery.
+    Returns (det with refined dphi, symbols [B, K, n_syms])."""
+    if n_syms >= SFO_AUTO_SYMS:
+        raise NotImplementedError(
+            f"frames of {n_syms} >= {SFO_AUTO_SYMS} symbols need the sample-"
+            "clock-drift tracking path, which is not ported yet"
+        )
+    n_samples = fs.K_SAMP * n_syms + fs.PULSE_TAIL
+    wr, wi = extract_windows(x, det.start, n_samples, return_planes=True)
+    pre = torch.complex(wr[..., :TEMPLATE_LEN], wi[..., :TEMPLATE_LEN])
+    det = dataclasses.replace(
+        det, dphi=det.dphi + fine_cfo(pre, det.dphi, det.tau, tables.delayed_templates)
+    )
+    syms = recover_symbols_planes(
+        wr, wi, det.dphi, det.phi, det.gamma,
+        _candidate_taps30(det, tables.timing_bank30), n_syms,
+    )
+    return det, syms
+
+
+# ---------------------------------------------------------------------------
+# header decode
+# ---------------------------------------------------------------------------
+
+
+def decode_header_multi(regions: list[torch.Tensor]):
+    """Decode W candidate header streams ([..., 180] each) in one pass:
+    returns ((header_valid, user_bytes[..., W, 14], payload_len, modulation,
+    inner, outer), hdr_bytes[..., W, 22]) with a [..., W] branch axis.
+
+    The branches are concatenated on the symbol axis; 180 symbols = 15 Golay
+    blocks exactly, so block boundaries never straddle a branch seam."""
+    w = len(regions)
+    cat = torch.cat(regions, dim=-1)  # [..., W*180]
+    idx = modem.demod_hard(cat, fs.HEADER_MOD)
+    coded = modem.indices_to_bits(idx, 2)  # [..., W*360]
+    bits = golay2412().decode(coded)  # [..., W*180] data bits
+    per = fs.HEADER_SYMS  # 180 data bits per branch (15 blocks x 12)
+    hdr = torch.stack(
+        [
+            bitops.bits_to_bytes(bits[..., b * per : b * per + fs.HEADER_BITS])
+            for b in range(w)
+        ],
+        dim=-2,
+    )  # [..., W, 22]
+    valid = crc.crc24_check(hdr)
+    user = hdr[..., : fs.HEADER_USER_BYTES]
+    plen = (hdr[..., 14].to(torch.int32) << 8) | hdr[..., 15].to(torch.int32)
+    mod = hdr[..., 16].to(torch.int32)
+    inner = hdr[..., 17].to(torch.int32)
+    outer = hdr[..., 18].to(torch.int32)
+    return (valid, user, plen, mod, inner, outer), hdr
+
+
+# ---------------------------------------------------------------------------
+# linear equalizer
+# ---------------------------------------------------------------------------
+
+EQ_TAPS = 8
+EQ_LAM_REL = 1e-3  # ridge of the channel LS, relative to the mean Gram diagonal
+
+
+@functools.lru_cache(maxsize=None)
+def _preamble_estimator() -> tuple[np.ndarray, np.ndarray, float, int]:
+    """For the KNOWN-constant preamble reference, the design matrix D, the
+    regularized LS estimator A = (D^H D + lam I)^-1 D^H and the training
+    power are numpy constants: (A [L, rows], D [rows, L], p_train, rows)."""
+    L = EQ_TAPS
+    c = L // 2
+    n0 = L - 1 - c
+    rnp = np.asarray(msequence.preamble_symbols(), dtype=np.complex64)
+    rows = len(rnp) - L + 1
+    D_np = np.stack([rnp[n0 + c - t : n0 + c - t + rows] for t in range(L)], axis=-1)
+    G_np = D_np.conj().T @ D_np
+    lam_np = EQ_LAM_REL * max(float(np.mean(np.real(np.diag(G_np)))), 1e-12)
+    A_est = np.linalg.inv(G_np + lam_np * np.eye(L)) @ D_np.conj().T
+    p_train = float(np.mean(np.abs(rnp) ** 2))
+    return A_est.astype(np.complex64), D_np.astype(np.complex64), p_train, rows
+
+
+def _bf16_round(a: torch.Tensor) -> torch.Tensor:
+    """Round to bfloat16 and back: the operand rounding of the reference's
+    Gram products, with the contraction itself left in float32."""
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def _eq_train(syms: torch.Tensor, ref: torch.Tensor | None) -> torch.Tensor:
+    """Train a symbol-spaced linear equalizer on known reference symbols.
+
+    The *indirect* (estimate-then-invert) design:
+
+    1. *Channel estimate*: LS of received on the KNOWN CLEAN reference,
+       syms[m] = sum_t h[t] ref[m+c-t] + noise.
+    2. *Model-order gate* (positive-part James-Stein) on the ISI taps only:
+       h' = h_c delta + kappa (h - h_c delta), kappa = (1 - null/|isi|)_+
+       with null = sigma^2 (L-1)/(N P) the pure-noise expectation. The lag-0
+       tap h_c is always kept.
+    3. *Ensemble MMSE inverse*: w solves (P R + sigma^2 I) w = P conj(hbar)
+       with R the channel autocorrelation implied by h' and
+       hbar[i] = h'[2c-i].
+    4. *Unbiasing*: w /= g0 with g0 = sum_t w[t] h'[c-t] restores the unit
+       decision scale.
+
+    ``ref``: [..., n_ref] known symbols aligned with ``syms[..., :n_ref]``,
+    or ``None`` for the constant preamble, whose estimator is precomputed.
+    Returns taps [..., EQ_TAPS] for _eq_apply.
+    """
+    L = EQ_TAPS
+    c = L // 2
+    n0 = L - 1 - c
+    dev = syms.device
+    if ref is None:
+        A_np, D_np, p_train_f, rows = _preamble_estimator()
+        A_est = device_const(("eq_pre_A",), lambda: A_np, dev)
+        D_c = device_const(("eq_pre_D",), lambda: D_np, dev)
+        y = syms[..., n0 : n0 + rows]
+        h = y @ A_est.T  # [..., L]
+        resid = y - h @ D_c.T
+        p_train = torch.tensor(p_train_f, dtype=torch.float32, device=dev)
+    else:
+        n_ref = ref.shape[-1]
+        rows = n_ref - L + 1  # targets m = n0 .. n_ref-1-c: full regressor span
+        y = syms[..., n0 : n0 + rows]
+        ref_b = ref.expand(syms.shape[:-1] + (n_ref,))
+        # D[n, t] = ref[n0 + n + c - t]; y[n] = syms[n0 + n]
+        D = torch.stack(
+            [ref_b[..., n0 + c - t : n0 + c - t + rows] for t in range(L)], dim=-1
+        )  # [..., rows, L]
+        # Gram + cross-correlation with operands rounded to bf16 and float32
+        # accumulation, as the reference does on every backend: these are
+        # noise-averaged statistics over ``rows`` symbols
+        Dr, Di = _bf16_round(D.real), _bf16_round(D.imag)
+        mm = lambda a, b: torch.einsum("...nl,...nm->...lm", a, b)
+        Grr = mm(Dr, Dr) + mm(Di, Di)
+        Gri = mm(Dr, Di) - mm(Di, Dr)
+        G = torch.complex(Grr, Gri)
+        yr, yi = _bf16_round(y.real), _bf16_round(y.imag)
+        mv = lambda a, b: torch.einsum("...nl,...n->...l", a, b)
+        rhs = torch.complex(mv(Dr, yr) + mv(Di, yi), mv(Dr, yi) - mv(Di, yr))
+        diag = torch.diagonal(G, dim1=-2, dim2=-1).real
+        lam = EQ_LAM_REL * torch.clamp(torch.mean(diag, dim=-1), min=1e-12)
+        G = G + lam[..., None, None] * torch.eye(L, dtype=G.dtype, device=dev)
+        h = _solve_hermitian(G, rhs)  # [..., L] channel estimate
+        resid = y - torch.einsum("...nl,...l->...n", D, h)
+        p_train = torch.clamp(torch.mean(torch.abs(ref_b) ** 2, dim=-1), min=1e-12)
+
+    # noise estimate from the channel-fit residual (bias-corrected)
+    sigma2 = torch.mean(torch.abs(resid) ** 2, dim=-1) * (rows / max(rows - L, 1))
+
+    # James-Stein gate on the ISI taps (lag-0 always kept)
+    delta = torch.zeros((L,), dtype=h.dtype, device=dev)
+    delta[c] = 1.0
+    hc = h[..., c]
+    e = h - hc[..., None] * delta
+    isi = torch.sum(torch.abs(e) ** 2, dim=-1)
+    null = sigma2 * ((L - 1) / rows) / p_train
+    kappa = torch.clamp(1.0 - null / torch.clamp(isi, min=1e-20), 0.0, 1.0)
+    h = hc[..., None] * delta + kappa[..., None].to(h.dtype) * e
+
+    # ensemble MMSE equalizer for (h, sigma2): M w = rhs_w with
+    # M[i, j] = P R[i - j] + sigma2 I, rhs_w[i] = P conj(h[c - i])
+    lead = h.shape[:-1]
+    hp = torch.cat(
+        [
+            torch.zeros(lead + (L,), dtype=h.dtype, device=dev),
+            h,
+            torch.zeros(lead + (2 * L - 1,), dtype=h.dtype, device=dev),
+        ],
+        dim=-1,
+    )  # safe lags
+    R = torch.stack(
+        [
+            torch.sum(
+                hp[..., L : 3 * L] * torch.conj(hp[..., L - k : 3 * L - k]), dim=-1
+            )
+            for k in range(-(L - 1), L)
+        ],
+        dim=-1,
+    )  # [..., 2L-1], R[k + L-1] = sum_m h[m] conj(h[m-k])
+    ii = np.arange(L)
+    toep = torch.from_numpy((ii[:, None] - ii[None, :]) + L - 1).to(dev)
+    M = (
+        p_train[..., None, None] * R[..., toep]
+        + sigma2[..., None, None] * torch.eye(L, dtype=h.dtype, device=dev)
+    )
+    # h is estimated in the same centered convention as w (tap t multiplies
+    # a (t - c)-delayed symbol), so the equalizer cascade's signal path is
+    # hbar[i] = h[2c - i], i = 0..L-1 (zero outside [0, L))
+    hbar = torch.flip(hp[..., 2 * c + 1 : 2 * c + 1 + L], dims=(-1,))
+    w = _solve_hermitian(M, p_train[..., None] * torch.conj(hbar))
+
+    # unbias the signal-path gain (decision devices need unit scale);
+    # |g0| is clamped to [1/2, 2]
+    g0 = torch.sum(w * hbar, dim=-1)
+    g0a = torch.abs(g0)
+    g0m = torch.clamp(g0a, 0.5, 2.0)
+    g0 = torch.where(g0a > 1e-3, g0 / g0a, torch.ones_like(g0)) * g0m
+    w = w / g0[..., None]
+
+    # model-sanity gate: when the LTI fit leaves most of the signal power
+    # unexplained, no FIR taps are trustworthy; fall back to the identity
+    bad = sigma2 > 0.6 * p_train
+    return torch.where(bad[..., None], delta, w).to(torch.complex64)
+
+
+def _solve_hermitian(G: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve the Hermitian-PD complex system G w = rhs, batched, by
+    conjugate gradients: exact in <= L steps for an L-dimensional PD system
+    (L = 8 here). Degenerate all-zero slots (masked detections) keep x = 0
+    via the guarded denominators."""
+    L = G.shape[-1]
+    x = torch.zeros_like(rhs)
+    r = rhs
+    p = r
+    rs = torch.sum(torch.abs(r) ** 2, dim=-1)
+    for _ in range(L):
+        gp = torch.einsum("...ij,...j->...i", G, p)
+        denom = torch.clamp(torch.sum(torch.conj(p) * gp, dim=-1).real, min=1e-30)
+        alpha = (rs / denom).to(G.dtype)
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * gp
+        rs_new = torch.sum(torch.abs(r) ** 2, dim=-1)
+        beta = (rs_new / torch.clamp(rs, min=1e-30)).to(G.dtype)
+        p = r + beta[..., None] * p
+        rs = rs_new
+    return x.to(torch.complex64)
+
+
+def _eq_apply(w: torch.Tensor, syms: torch.Tensor, n_out: int | None = None) -> torch.Tensor:
+    """Apply equalizer taps [..., L] to symbols [..., n]:
+    z[n] = sum_t w[t] syms[n + c - t], same indexing as _eq_train.
+
+    ``n_out`` limits the output length (the caller passes a context slice
+    ``syms[..., :n_out + c]`` to equalize only a prefix region cheaply)."""
+    L = EQ_TAPS
+    c = L // 2
+    n = syms.shape[-1]
+    if n_out is None:
+        n_out = n
+    lead = syms.shape[:-1]
+    back = max(0, n_out + c - n)
+    zeros = lambda k: torch.zeros(lead + (k,), dtype=syms.dtype, device=syms.device)
+    q = torch.cat([zeros(L - 1 - c), syms, zeros(back)], dim=-1)  # q[i] = syms[i-(L-1-c)]
+    z = torch.zeros(lead + (n_out,), dtype=torch.complex64, device=syms.device)
+    for t in range(L):
+        z = z + w[..., t, None] * q[..., L - 1 - t : L - 1 - t + n_out]
+    return z
+
+
+# ---------------------------------------------------------------------------
+# carrier model
+# ---------------------------------------------------------------------------
+
+
+def _ipow(z: torch.Tensor, m: int) -> torch.Tensor:
+    """z**m for a small positive integer m by repeated multiplication (a
+    complex ``pow`` goes through exp/log and loses bits)."""
+    out = None
+    base = z
+    while m:
+        if m & 1:
+            out = base if out is None else out * base
+        m >>= 1
+        if m:
+            base = base * base
+    return out
+
+
+def _mth_power_phase(table_np: np.ndarray, m: int) -> tuple[complex, float]:
+    """The constellation's m-th-moment (complex) and its phase psi."""
+    unit = table_np / np.maximum(np.abs(table_np), 1e-12)
+    moment = np.mean(unit**m * np.abs(table_np))
+    return moment, float(np.angle(moment))
+
+
+def _vv_stat(r: torch.Tensor, m: int) -> torch.Tensor:
+    """Viterbi&Viterbi statistic (r/|r|)^m |r| per symbol."""
+    mag = torch.abs(r)
+    return _ipow(r / torch.clamp(mag, min=1e-12), m) * mag
+
+
+def _carrier_fit(syms: torch.Tensor, pre_ref: torch.Tensor):
+    """Fit the (phi_b, dphi) linear phase model from the preamble + header
+    region ``syms[..., :h1]``, decision-free:
+
+    - the *known* preamble gives an exact, ambiguity-free phase anchor phi_a
+      at the preamble center;
+    - the header (always QPSK, unknown bits) gives a Viterbi&Viterbi
+      4th-power anchor with no decision fold; its two half-sums also give a
+      fold-free frequency estimate used only to *predict* the header-center
+      phase well enough to resolve the mod-(pi/2) branch of the anchor;
+    - the final model is the two-point fit through (phi_a, phi_b).
+    """
+    h0 = fs.PREAMBLE_SYMS
+    h1 = h0 + fs.HEADER_SYMS
+
+    q = syms[..., :h0] * torch.conj(pre_ref)
+    q1 = torch.sum(q[..., : h0 // 2], dim=-1)
+    q2 = torch.sum(q[..., h0 // 2 :], dim=-1)
+    phi_a = torch.angle(q1 + q2)  # exact phase @ preamble center
+    n_a = (h0 - 1) / 2.0
+
+    u = _vv_stat(syms[..., h0:h1], 4)
+    half = fs.HEADER_SYMS // 2
+    u1 = torch.sum(u[..., :half], dim=-1)
+    u2 = torch.sum(u[..., half:], dim=-1)
+    slope_h = torch.angle(u2 * torch.conj(u1)) / (4.0 * half)  # rad/sym, fold-free
+    # psi: 4th-moment phase of the header constellation (pi for this QPSK)
+    _, psi = _mth_power_phase(modem.constellation(fs.HEADER_MOD), 4)
+    n_b = h0 + (fs.HEADER_SYMS - 1) / 2.0
+    phi_b = torch.angle((u1 + u2) * complex(np.exp(-1j * psi))) / 4.0  # mod pi/2
+    pred = phi_a + slope_h * (n_b - n_a)
+    phi_b = phi_b + (np.pi / 2.0) * torch.round((pred - phi_b) / (np.pi / 2.0))
+
+    dphi = (phi_b - phi_a) / (n_b - n_a)
+    return phi_b, dphi
+
+
+def _apply_carrier(syms: torch.Tensor, phi_b: torch.Tensor, dphi: torch.Tensor) -> torch.Tensor:
+    """Derotate by the fitted model, anchored at the header center n_b."""
+    n_b = fs.PREAMBLE_SYMS + (fs.HEADER_SYMS - 1) / 2.0
+    n = torch.arange(syms.shape[-1], dtype=torch.float32, device=syms.device)
+    return syms * expj(-(phi_b[..., None] + dphi[..., None] * (n - n_b)))
+
+
+# ---------------------------------------------------------------------------
+# common sync front-end (detect + symbols + header), then the payload back-end
+# ---------------------------------------------------------------------------
+
+
+def sync_symbols(syms: torch.Tensor, tables: PhyTables):
+    """Stage 4 on recovered symbols [B, K, n_syms]: two-stage equalizer,
+    carrier fit, three-branch header decode. Returns (refined symbols,
+    (hdr_valid, user, plen, mod, inner, outer), evm_lin, hdr_tx_ref).
+
+    EQ1 trained on the 64 known preamble symbols gets the header decodable
+    under static ISI; once the header decodes, EQ2 retrains on preamble +
+    re-encoded header (244 known symbols) and re-equalizes the whole frame
+    for the payload. Invalid-header candidates keep the EQ1 taps.
+
+    The header is decoded from the equalized, the raw (refined) and a
+    per-segment tracked stream in ONE pass, and any CRC pass is accepted,
+    preferring equalized, then raw, then tracked.
+    """
+    h0, h1 = fs.PREAMBLE_SYMS, fs.PREAMBLE_SYMS + fs.HEADER_SYMS
+    pre_ref = tables.preamble
+    w1 = _eq_train(syms, None)
+    c = EQ_TAPS // 2
+    hdr_region = _eq_apply(w1, syms[..., : h1 + c], n_out=h1)
+    raw_region = syms[..., :h1]
+    # absolute phase at the preamble tail of the EQ1 stream (known symbols:
+    # no modular ambiguity) anchors the tracked header branch independently
+    # of the linear carrier fit
+    qp1 = torch.sum(
+        hdr_region[..., h0 - 32 : h0 - 16] * torch.conj(pre_ref[-32:-16]), dim=-1
+    )
+    qp2 = torch.sum(hdr_region[..., h0 - 16 : h0] * torch.conj(pre_ref[-16:]), dim=-1)
+    slope_pre = torch.angle(qp2 * torch.conj(qp1)) / 16.0  # rad/symbol
+    # extrapolate to the center of the first tracked header segment
+    # (seg=18): 8 symbols from the qp2 center to h0, +9 into the header
+    anchor_pre = torch.angle(qp2) + slope_pre * (8.0 + 9.0)
+    hdr_pre_fit = hdr_region  # EQ1 stream before any carrier model
+    fit_eq = _carrier_fit(hdr_region, pre_ref)
+    fit_raw = _carrier_fit(syms, pre_ref)
+    hdr_region = _apply_carrier(hdr_region, *fit_eq)
+    raw_region = _apply_carrier(raw_region, *fit_raw)
+    hdr_trk = _dd_phase_track(
+        hdr_pre_fit[..., h0:h1], fs.HEADER_MOD, seg=18,
+        anchor=anchor_pre, anchor_slope=slope_pre,
+    )
+    (v3, u3, pl3, m3, i3, o3), hb3 = decode_header_multi(
+        [hdr_region[..., h0:h1], raw_region[..., h0:h1], hdr_trk]
+    )
+    v_eq, v_raw, v_trk = v3[..., 0], v3[..., 1], v3[..., 2]
+    hdr_valid = v_eq | v_raw | v_trk
+    pick = v_eq  # prefer the equalized decode, then raw, then tracked
+    p_raw = (~v_eq) & v_raw
+
+    def pick3(a):  # a: [..., 3] or [..., 3, n]
+        if a.dim() == v3.dim():
+            return torch.where(pick, a[..., 0], torch.where(p_raw, a[..., 1], a[..., 2]))
+        return torch.where(
+            pick[..., None], a[..., 0, :],
+            torch.where(p_raw[..., None], a[..., 1, :], a[..., 2, :]),
+        )
+
+    user, plen, mod, inner, outer = (pick3(a) for a in (u3, pl3, m3, i3, o3))
+    hdr_bytes = pick3(hb3)
+    # derotate the full stream with the winning branch's fit (the tracked
+    # branch rides the EQ branch's fit)
+    use_eq_fit = pick | (~p_raw)
+    phi_b = torch.where(use_eq_fit, fit_eq[0], fit_raw[0])
+    dphi = torch.where(use_eq_fit, fit_eq[1], fit_raw[1])
+    syms = _apply_carrier(syms, phi_b, dphi)
+    # re-encode the decoded header back to the TX's 180 QPSK symbols: the EQ
+    # retraining reference, bit-exactly the transmitted header when its CRC
+    # passed (``_header_reference_symbols`` in the JAX package)
+    hdr_tx_ref = header_bytes_to_symbols(hdr_bytes)  # [B, K, 180]
+    refs = torch.cat(
+        [pre_ref.expand(hdr_tx_ref.shape[:-1] + (h0,)), hdr_tx_ref], dim=-1
+    )
+    w2 = _eq_train(syms, refs)
+    w = torch.where(hdr_valid[..., None], w2, w1)
+    syms = _eq_apply(w, syms)
+
+    # header EVM from the refined symbols' own hard decisions
+    hdr_idx = modem.demod_hard(syms[..., h0:h1], fs.HEADER_MOD)
+    hdr_dec_ref = modem.modulate(hdr_idx, fs.HEADER_MOD)
+    evm_lin = torch.mean(torch.abs(syms[..., h0:h1] - hdr_dec_ref) ** 2, dim=-1)
+    return syms, (hdr_valid, user, plen, mod, inner, outer), evm_lin, hdr_tx_ref
+
+
+def sync_common(
+    x: torch.Tensor,
+    n_syms: int,
+    max_frames: int,
+    threshold: float = 0.45,
+    tables: PhyTables | None = None,
+    device: torch.device | str | None = None,
+):
+    """Config-independent RX front-end: [B, T] -> (det, refined symbols
+    [B, K, n_syms], header fields, header EVM, re-encoded header symbols).
+    ``n_syms`` is the symbol-buffer size (the longest frame the caller
+    expects).
+
+    ``evm_lin`` [B, K] is the post-refinement header-symbol error-vector
+    power: the per-frame noise-variance estimate the payload soft demod
+    consumes.
+    """
+    dev = resolve_device(device)
+    if tables is None:
+        tables = phy_tables(None, dev)
+    x = x.to(device=dev, dtype=torch.complex64).contiguous()
+    det = detect(x, max_frames, threshold, fine=False, tables=tables, device=dev)
+    det, syms = recover_candidates(x, det, n_syms, tables)
+    syms, fields, evm_lin, hdr_tx_ref = sync_symbols(syms, tables)
+    return det, syms, fields, evm_lin, hdr_tx_ref
+
+
+DD_PASSES = 2  # tracker passes: V&V (when it runs) counts as the first
+
+
+def _median_last(a: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis, keeping it, with the mean of the two middle
+    values for an even count (``torch.median`` returns the lower one)."""
+    n = a.shape[-1]
+    s = torch.sort(a, dim=-1).values
+    if n % 2:
+        return s[..., n // 2 : n // 2 + 1]
+    return s[..., n // 2 - 1 : n // 2] * 0.5 + s[..., n // 2 : n // 2 + 1] * 0.5
+
+
+def _dd_phase_track(
+    pay: torch.Tensor,
+    mod: int,
+    seg: int = 64,
+    anchor: torch.Tensor | float = 0.0,
+    anchor_slope: torch.Tensor | float = 0.0,
+    return_weight: bool = False,
+):
+    """Decision-directed segment-wise carrier tracking over payload symbols.
+
+    Split the symbols into ``seg``-symbol segments. When cycle slips are
+    plausible, a decision-free first pass runs: per segment, the
+    Viterbi&Viterbi m-th-power statistic u_i = sum (r/|r|)^m |r| has angle
+    m*theta_i + psi_m with no fold and no bias (psi_m the constellation's
+    m-th-moment phase). For strong-moment (PSK) constellations the
+    per-segment phases are unwrapped into a trajectory by a slope-predictive,
+    confidence-gated chain anchored at ``anchor`` (absolute phase at the
+    center of segment 0, ``anchor_slope`` its rad/symbol rate) and
+    interpolated linearly between segment centers; weak-moment (QAM/ASK)
+    constellations take a 2-parameter linear fit over all segments. The
+    corrected residual is then small enough for plain per-segment
+    decision-directed complex-gain passes (``_dd_gain_passes``).
+
+    The V&V stage is gated on actual slip risk: the worst plausible
+    post-refine drift over this span must reach an appreciable fraction of
+    the symmetry angle, and QAM/ASK additionally need enough symbols to
+    average the estimator's modulation self-noise.
+    """
+    if modem.is_differential(mod):
+        raise NotImplementedError("differential modulations are not ported yet")
+    dev = pay.device
+    sym_rot = modem.rotational_symmetry(mod)
+    m = int(round(2 * np.pi / sym_rot))
+    table_np = modem.constellation(mod)
+    moment, psi = _mth_power_phase(table_np, m)
+    unpsi = complex(np.exp(-1j * psi))
+    n = pay.shape[-1]
+    nseg = -(-n // seg)
+    pad = nseg * seg - n
+    lead = pay.shape[:-1]
+
+    # slip risk: 5-sigma residual slope after the decision-free refine
+    # (~2.7e-4 rad/sym sigma at the lowest workable SNR) over the span
+    drift_5sigma = 1.4e-3 * n
+    use_vv = (
+        nseg >= 2
+        and drift_5sigma > sym_rot / 8
+        and (abs(moment) > 0.9 or abs(moment) * np.sqrt(n) >= 3.0)
+    )
+
+    p = torch.cat([pay, torch.zeros(lead + (pad,), dtype=pay.dtype, device=dev)], dim=-1)
+    p = p.reshape(lead + (nseg, seg))
+
+    if use_vv:
+        u = torch.sum(_vv_stat(p, m), dim=-1)  # [..., nseg]
+        period = sym_rot  # = 2*pi/m
+        if abs(moment) <= 0.6:
+            # weak-moment QAM/ASK: segments are too noisy individually; a
+            # linear fit averages the self-noise across ALL segments
+            slope = torch.angle(torch.sum(u[..., 1:] * torch.conj(u[..., :-1]), dim=-1)) / m
+            slope = torch.clamp(slope, -sym_rot / 4, sym_rot / 4)  # rad per segment
+            seg_idx = torch.arange(nseg, dtype=torch.float32, device=dev)
+            detrend = expj(-m * slope[..., None] * seg_idx)
+            a = torch.angle(torch.sum(u * detrend, dim=-1) * unpsi) / m
+            t_idx = torch.arange(nseg * seg, dtype=torch.float32, device=dev)
+            phi = a[..., None] + (slope[..., None] / seg) * (t_idx - (seg - 1) / 2.0)
+            flat = p.reshape(lead + (nseg * seg,)) * expj(-phi)
+            return _dd_gain_passes(flat, pay, mod, nseg, seg, n, DD_PASSES - 1,
+                                   return_weight=return_weight)
+        # Branch chaining is slope-predictive AND confidence-gated: segment
+        # i resolves its fold against th_{prev} + slope (a segment-granular
+        # first-order PLL), with the slope updated as an EMA over confident
+        # increments and the reference frozen across deep-fade segments.
+        # Branch decisions use a slope-detrended 1-2-1 smoothing of the
+        # neighboring V&V statistics.
+        conf = torch.abs(u)
+        thr = 0.35 * _median_last(conf)
+        anchor = torch.as_tensor(anchor, dtype=torch.float32, device=dev)
+        slope = (
+            torch.as_tensor(anchor_slope, dtype=torch.float32, device=dev) * seg
+        ).expand(lead)  # rad per segment
+        half_p = period / 2.0
+
+        def th_at(i, slope):
+            us = u[..., i]
+            rot = expj(m * slope)
+            if i > 0:
+                us = us + 0.5 * u[..., i - 1] * rot
+            if i + 1 < nseg:
+                us = us + 0.5 * u[..., i + 1] * torch.conj(rot)
+            return torch.angle(us * unpsi) / m
+
+        th_0 = th_at(0, slope)
+        b0 = torch.round((th_0 - anchor) / period)
+        th0 = th_0 - b0 * period
+        th = [th0]
+        good = conf[..., 0] > thr[..., 0]
+        ref = torch.where(good, th0, anchor.expand(th0.shape))
+        for i in range(1, nseg):
+            pred = ref + slope
+            th_raw_i = th_at(i, slope)
+            b = torch.round((th_raw_i - pred) / period)
+            th_i = th_raw_i - b * period
+            th.append(th_i)
+            good_i = conf[..., i] > thr[..., 0]
+            inc = torch.clamp(th_i - ref, -1.2 * half_p, 1.2 * half_p)
+            both = good & good_i
+            slope = torch.where(both, 0.5 * slope + 0.5 * inc, slope)
+            ref = torch.where(good_i, th_i, ref + slope)
+            good = good_i
+        th = torch.stack(th, dim=-1)  # [..., nseg] unwrapped
+        # piecewise-linear interpolation between segment centers
+        t_pos = (np.arange(nseg * seg, dtype=np.float32) - (seg - 1) / 2.0) / seg
+        j_lo = np.clip(np.floor(t_pos).astype(np.int64), 0, nseg - 2)
+        fr = torch.from_numpy(np.clip(t_pos - j_lo, 0.0, 1.0).astype(np.float32)).to(dev)
+        j_lo = torch.from_numpy(j_lo).to(dev)
+        phi = th[..., j_lo] * (1.0 - fr) + th[..., j_lo + 1] * fr
+        flat = p.reshape(lead + (nseg * seg,)) * expj(-phi)
+        n_dd = DD_PASSES - 1
+    else:
+        flat = p.reshape(lead + (nseg * seg,))
+        n_dd = DD_PASSES
+
+    return _dd_gain_passes(flat, pay, mod, nseg, seg, n, n_dd, return_weight=return_weight)
+
+
+def _dd_gain_passes(flat, pay, mod, nseg, seg, n, n_dd, return_weight=False):
+    """Independent per-segment decision-directed COMPLEX GAIN passes
+    (residual assumed well inside the decision regions).
+
+    The LS gain g = <p, d>/<d, d> corrects phase AND amplitude; |g| is
+    clamped to [1/4, 4] so a deep-null segment cannot blow up the symbols.
+    The tail segment is zero-padded: decisions OF the pad are nonzero
+    constellation points, so the gain denominator counts only real symbols.
+    With ``return_weight`` also returns the cumulative unclamped |g| per
+    symbol, the fading weight of the LLRs.
+    """
+    dev = flat.device
+    lead = pay.shape[:-1]
+    table = modem.constellation_t(mod, dev)
+    valid = torch.from_numpy(
+        (np.arange(nseg * seg) < n).reshape(nseg, seg).astype(np.float32)
+    ).to(dev)
+    wmag = None
+    for _ in range(n_dd):
+        p = flat.reshape(lead + (nseg, seg))
+        idx = modem.demod_hard(p, mod)
+        d = table[idx.to(torch.int64)] * valid
+        e = torch.sum(p * torch.conj(d), dim=-1)  # [..., nseg]
+        pd = torch.clamp(torch.sum(torch.abs(d) ** 2, dim=-1), min=1e-12)
+        g = e / pd
+        ga = torch.abs(g)
+        mag = torch.clamp(ga, 0.25, 4.0)
+        g = torch.where(ga > 1e-6, g / ga, torch.ones_like(g)) * mag
+        flat = (p / g[..., None]).reshape(lead + (nseg * seg,))
+        if return_weight:
+            m_raw = torch.clamp(torch.abs(e) / pd, 1e-3, 4.0)
+            wmag = m_raw if wmag is None else wmag * m_raw
+    if return_weight:
+        if wmag is None:
+            w_sym = torch.ones(lead + (n,), dtype=torch.float32, device=dev)
+        else:
+            w_sym = torch.repeat_interleave(wmag, seg, dim=-1)[..., :n]
+        return flat[..., :n], w_sym
+    return flat[..., :n]
+
+
+def decode_payload_symbols(
+    syms: torch.Tensor,
+    cfg: FrameConfig,
+    noise_var: torch.Tensor,
+    anchor: torch.Tensor,
+    anchor_slope: torch.Tensor,
+    tables: PhyTables,
+):
+    """Fixed-config payload back-end: symbols [.., n_syms >= frame_syms] ->
+    (payload bytes [..., payload_len], crc_ok bool[...]).
+
+    ``noise_var``: per-frame noise-variance estimate [...] for LLR scaling
+    (the header EVM from sync_common). ``anchor``: absolute phase at the
+    payload start (symbol h1) for the payload tracker's segment-0 branch,
+    with ``anchor_slope`` its rad/symbol rate (framesync_fixed reconstructs
+    both from the re-encoded decoded header).
+    """
+    spec = fs.FrameSpec(cfg)
+    h1 = fs.PREAMBLE_SYMS + fs.HEADER_SYMS
+    pay = syms[..., h1 : h1 + spec.payload_syms]
+    # Pre-derotate the payload by the measured header-exit line (anchor
+    # phase + slope): the residual the tracker sees then starts at ~zero
+    # phase and ~zero slope
+    t_rel = torch.arange(pay.shape[-1], dtype=torch.float32, device=pay.device)
+    line = anchor[..., None] + anchor_slope[..., None] * t_rel
+    pay = pay * expj(-line)
+    pay, gmag = _dd_phase_track(pay, cfg.modulation, seg=32, return_weight=True)
+    nv = torch.clamp(noise_var.to(torch.float32), min=1e-4)[..., None]
+    # Fading-aware LLR scaling: the gain passes DIVIDED each segment by its
+    # estimated complex gain, so post-normalization noise is up by 1/|g|^2
+    nv = nv / torch.square(gmag)
+    llr = modem.demod_soft_bits(pay, cfg.modulation, nv)
+    llr = llr[..., : spec.inner_bits]  # drop modulation pad bits
+    llr = llr[..., tables.interleave_inv]
+    obits = registry.inner_decode(llr, spec.outer_bits, cfg.inner_code)
+    msg = registry.outer_decode(obits, spec.payload_msg_bytes, cfg.outer_code)
+    crc_ok = crc.crc24_check(msg)
+    return msg[..., : cfg.payload_len], crc_ok
+
+
+def framesync_fixed(
+    x: torch.Tensor,
+    cfg: FrameConfig,
+    max_frames: int,
+    threshold: float = 0.45,
+    tables: PhyTables | None = None,
+    device: torch.device | str | None = None,
+) -> FrameResults:
+    """Full RX for blocks known to carry frames of one config.
+
+    [B, T] samples -> FrameResults with [B, K] slots, on ``device``
+    (``None``: the GPU). Frames straddling the block end are not decoded.
+    """
+    dev = resolve_device(device)
+    if tables is None:
+        tables = phy_tables(cfg, dev)
+    spec = fs.FrameSpec(cfg)
+    det, syms, fields, evm_lin, hdr_ref = sync_common(
+        x, spec.frame_syms, max_frames, threshold, tables=tables, device=dev
+    )
+    return _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables)
+
+
+def _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables) -> FrameResults:
+    """Stage 5 and the result record, from the outputs of sync_common."""
+    hdr_valid, user, plen, mod, inner, outer = fields
+    # absolute payload-tracker anchor: correlate the header against the TX
+    # header symbols rebuilt from the DECODED header (bit-exact when
+    # header_valid). Slope from the two 90-symbol header halves (long
+    # baseline), phase from the last 20 symbols (agile under fading).
+    h1 = fs.PREAMBLE_SYMS + fs.HEADER_SYMS
+    h0_ = h1 - 180
+    u1 = torch.sum(syms[..., h0_ : h0_ + 90] * torch.conj(hdr_ref[..., :90]), dim=-1)
+    u2 = torch.sum(syms[..., h0_ + 90 : h1] * torch.conj(hdr_ref[..., 90:]), dim=-1)
+    a_slope = torch.angle(u2 * torch.conj(u1)) / 90.0  # rad/symbol
+    a_slope = torch.clamp(a_slope, -0.025, 0.025)  # ramp sanity
+    q2 = torch.sum(syms[..., h1 - 20 : h1] * torch.conj(hdr_ref[..., -20:]), dim=-1)
+    anchor = torch.angle(q2) + a_slope * 10.0  # extrapolated to h1
+
+    payload, crc_ok = decode_payload_symbols(
+        syms, cfg, evm_lin, anchor, a_slope, tables
+    )
+    pay_valid = crc_ok & hdr_valid
+
+    evm = 10.0 * torch.log10(torch.clamp(evm_lin, min=1e-12))
+    rssi = 20.0 * torch.log10(torch.clamp(det.gamma, min=1e-12))
+
+    cfg_match = (
+        (mod == cfg.modulation)
+        & (inner == cfg.inner_code)
+        & (outer == cfg.outer_code)
+        & (plen == cfg.payload_len)
+    )
+    return FrameResults(
+        mask=det.mask,
+        header_valid=hdr_valid & det.mask,
+        payload_valid=pay_valid & cfg_match & det.mask,
+        modulation=mod,
+        inner_code=inner,
+        outer_code=outer,
+        payload_len=plen,
+        header_user=user,
+        payload=payload,
+        symbols=syms,
+        evm=evm,
+        rssi=rssi,
+        cfo=det.dphi,
+        start=det.start,
+    )
