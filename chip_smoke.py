@@ -11,15 +11,37 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit; exits non-zero without a card.
 2. build: compiles liquiddsp_tpu_torch/csrc/*.cu with nvcc (set-up time).
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes the block receiver gives it, then timed with CUDA events
-   beside the plain version, the bound of the card and, for the correlator,
-   one library call (a complex torch.matmul on the block-Toeplitz form).
+   at the shapes that EVERY path below gives it (block, sharded, streaming
+   and config-class windows, with the candidates the detector finds there),
+   then timed at the block and sharded shapes with CUDA events beside the
+   plain version, the bound of the card and, where one PyTorch call computes
+   the same function, that call (correlator: a complex torch.matmul on the
+   block-Toeplitz form; halo: pad + unfold made contiguous).
 4. main path: for both receiver configs (QPSK uncoded; QPSK + V27 + Golay),
    framegen 64 payloads, lay out a 64 x 65,536 stream with AWGN, decode it
    with framesync_fixed, and hold every payload against what was sent. The
    kernels' launch counters are set to 0 just before and read just after.
    Two rows are decoded again on the CPU through the plain versions and must
    give the same frames.
+5. sharded path: the same 4.19 M samples a step as 8 channels x 524,288,
+   cut into 8 time shards of 65,536 on the one card, through
+   sharded_framesync for both configs: every whole frame of the stream
+   exactly once, at its true start +-1, with the payload that was sent;
+   frames across shard boundaries counted; LinkMetrics against the host's
+   count; launches of one step demanded exactly.
+6. streaming: ShardedStreamingRx over three consecutive chunks of 8 x 524,288
+   of one stream: every whole frame exactly once, those across super-block
+   edges included; launches of every step demanded exactly.
+7. config classes: differential DQPSK and QAM64 + Reed-Solomon at 30 dB
+   through framesync_fixed at 8 x 65,536 and through sharded_framesync at
+   2 x 131,072 in 4 shards, each held against the payloads sent and against
+   a CPU run through the plain versions; launches of each step demanded
+   exactly.
+
+Every step of every path is driven with the kernels' launch counters set to 0
+just before and read just after, and fails unless each kernel of that path
+was launched exactly once (the Viterbi kernel only where the config has the
+inner code, the halo kernel only in the sharded receivers).
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -46,23 +68,33 @@ from liquiddsp_tpu_torch.kernels.correlator import (
     correlate_reduced_ref,
 )
 from liquiddsp_tpu_torch.kernels.extract import extract_windows, extract_windows_ref
+from liquiddsp_tpu_torch.kernels.halo import halo_windows, halo_windows_ref
 from liquiddsp_tpu_torch.kernels.recover import (
     recover_symbols_planes,
     recover_symbols_planes_ref,
 )
 from liquiddsp_tpu_torch.kernels.viterbi import viterbi, viterbi_ref
 from liquiddsp_tpu_torch.ops.fec import conv
+from liquiddsp_tpu_torch.parallel.halo import sharded_framesync
+from liquiddsp_tpu_torch.parallel.mesh import make_mesh
 from liquiddsp_tpu_torch.phy import detector
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.framesync import framesync_fixed
 from liquiddsp_tpu_torch.phy.tables import phy_tables
-from liquiddsp_tpu_torch.streams import tiled_stream
+from liquiddsp_tpu_torch.runtime.distributed_stream import ShardedStreamingRx
+from liquiddsp_tpu_torch.streams import long_stream, shard_slots, tiled_stream
+from liquiddsp_tpu_torch.utils.metrics import LinkMetrics
 
 BATCH, BLOCK = 64, 65536
 CONFIGS = (  # (config, SNR dB, least share of frames that must decode)
     (FrameConfig(1, 0, 0, 64), 20.0, 1.0),
     (FrameConfig(1, 1, 1, 64), 10.0, 0.99),
 )
+# the sharded path: the same samples a step as long channels, 8 time shards
+SH_BATCH, SH_TOTAL, SH_NTIME = 8, 524288, 8
+# config classes beyond QPSK, at a smaller depth: (config, SNR dB)
+CLASS_CONFIGS = ((FrameConfig(5, 0, 0, 64), 30.0), (FrameConfig(10, 0, 2, 64), 30.0))
+CL_BATCH, CL_SH_BATCH, CL_SH_TOTAL, CL_SH_NTIME = 8, 2, 131072, 4
 # published peaks of one H100 SXM at its full power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -89,10 +121,12 @@ _flush = None
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Median time of ``fn`` in ms by CUDA events, the 50 MB L2 flushed
-    before every timed call."""
+    before every timed call. The flush writes 512 MB (about 0.2 ms of device
+    time), so the card is still busy when the host has queued ``fn``: the
+    events then bracket the kernels and not the host's time to launch them."""
     global _flush
     if _flush is None:
-        _flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+        _flush = torch.empty(512 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(warmup):
         fn()
     times = []
@@ -135,7 +169,9 @@ def toeplitz_operands(x: torch.Tensor, templates: np.ndarray):
     return xcat, torch.from_numpy(m.reshape(2 * l, f * l)).to(x.device)
 
 
-def check_correlator(x: torch.Tensor) -> dict:
+def compare_correlator(x: torch.Tensor):
+    """The correlator kernel against its plain version on ``x``. Returns the
+    largest difference of rho2 and the kernel's outputs."""
     tm = detector.templates_time()
     got = correlate_reduced(x, tm)
     torch.cuda.synchronize()
@@ -152,6 +188,12 @@ def check_correlator(x: torch.Tensor) -> dict:
         fail("correlator arg-max bins differ at peaks")
     if not torch.allclose(got["corr"][peaks], ref["corr"][peaks], rtol=1e-4, atol=1e-4):
         fail("correlator peak correlations differ")
+    return err, got
+
+
+def check_correlator(x: torch.Tensor) -> dict:
+    tm = detector.templates_time()
+    err, got = compare_correlator(x)
     # library yardstick: cross-check its surface once, then time it
     xcat, mt = toeplitz_operands(x, tm)
     surf = (xcat[:128] @ mt).reshape(128, 5, 128)  # first 128 blocks of row 0
@@ -180,15 +222,21 @@ def check_correlator(x: torch.Tensor) -> dict:
     }
 
 
+def compare_extract(x: torch.Tensor, starts: torch.Tensor, n: int) -> float:
+    """The extract kernel against its plain version: exact."""
+    gr, gi = extract_windows(x, starts, n, return_planes=True)
+    torch.cuda.synchronize()
+    rr, ri = extract_windows_ref(x, starts, n)
+    err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
+    if err != 0.0 or not (torch.equal(gr, rr) and torch.equal(gi, ri)):
+        fail(f"extract differs from the plain version at x {tuple(x.shape)}, n={n} by {err}")
+    return err
+
+
 def check_extract(x: torch.Tensor, cases) -> dict:
     entry = None
     for starts, n in cases:
-        gr, gi = extract_windows(x, starts, n, return_planes=True)
-        torch.cuda.synchronize()
-        rr, ri = extract_windows_ref(x, starts, n)
-        err = max(float((gr - rr).abs().max()), float((gi - ri).abs().max()))
-        if err != 0.0 or not (torch.equal(gr, rr) and torch.equal(gi, ri)):
-            fail(f"extract differs from the plain version at n={n} by {err}")
+        err = compare_extract(x, starts, n)
         b, k = starts.shape
         # the function must read each window sample and write it once
         bms, by = bound(b * k * 4 + 2 * b * k * n * 8, 0)
@@ -211,25 +259,35 @@ def check_extract(x: torch.Tensor, cases) -> dict:
     return entry
 
 
+def compare_recover(x: torch.Tensor, starts: torch.Tensor, n_syms: int, gen: torch.Generator):
+    """The recover kernel against its plain version on the windows of ``x``
+    at ``starts`` with random carrier, gain and timing taps. Returns the
+    largest difference and the arguments."""
+    b, k = starts.shape
+    n = fs.K_SAMP * n_syms + fs.PULSE_TAIL
+    bank = phy_tables(None, DEV).timing_bank30
+    wr, wi = extract_windows(x, starts, n, return_planes=True)
+    u = lambda lo, hi: torch.rand((b, k), generator=gen, device=DEV) * (hi - lo) + lo
+    dphi, phi, gamma = u(-0.05, 0.05), u(-np.pi, np.pi), u(0.5, 2.0)
+    taps = bank[torch.randint(0, 33, (b, k), generator=gen, device=DEV)].contiguous()
+    args = (wr, wi, dphi, phi, gamma, taps, n_syms)
+    got = recover_symbols_planes(*args)
+    torch.cuda.synchronize()
+    ref = recover_symbols_planes_ref(*args)
+    scale = float(torch.max(torch.abs(ref)))
+    err = float(torch.max(torch.abs(got - ref)))
+    # f32 phase dphi*m + phi at |phase| up to ~150 rad, and 30-term sums
+    if not err <= 2e-4 * scale:
+        fail(f"recover differs from the plain version at planes [{b}, {k}, {n}] by {err} (scale {scale})")
+    return err, args
+
+
 def check_recover(x: torch.Tensor, cases, gen: torch.Generator) -> dict:
     entry = None
-    bank = phy_tables(None, DEV).timing_bank30
     for starts, n_syms in cases:
         b, k = starts.shape
         n = fs.K_SAMP * n_syms + fs.PULSE_TAIL
-        wr, wi = extract_windows(x, starts, n, return_planes=True)
-        u = lambda lo, hi: torch.rand((b, k), generator=gen, device=DEV) * (hi - lo) + lo
-        dphi, phi, gamma = u(-0.05, 0.05), u(-np.pi, np.pi), u(0.5, 2.0)
-        taps = bank[torch.randint(0, 33, (b, k), generator=gen, device=DEV)].contiguous()
-        args = (wr, wi, dphi, phi, gamma, taps, n_syms)
-        got = recover_symbols_planes(*args)
-        torch.cuda.synchronize()
-        ref = recover_symbols_planes_ref(*args)
-        scale = float(torch.max(torch.abs(ref)))
-        err = float(torch.max(torch.abs(got - ref)))
-        # f32 phase dphi*m + phi at |phase| up to ~150 rad, and 30-term sums
-        if not err <= 2e-4 * scale:
-            fail(f"recover differs from the plain version by {err} (scale {scale})")
+        err, args = compare_recover(x, starts, n_syms, gen)
         c = b * k
         nbytes = c * n * 8 + c * (3 * 4 + 30 * 4) + c * n_syms * 8
         flops = c * n * 12 + c * n_syms * 120  # phase, sin, cos, derotation; filter
@@ -301,6 +359,75 @@ def check_viterbi(gen: torch.Generator) -> dict:
     }
 
 
+def check_halo(x: torch.Tensor, n_time: int, ovs, also, gen: torch.Generator) -> dict:
+    """The halo kernel against its plain version: exact. ``x`` at the sharded
+    path's shape with the overlap of each config, the streams ``also`` (x,
+    n_time, ov) of the streaming and config-class paths, then one awkward
+    shape."""
+    b3, tl3, nt3 = 3, 4097, 5  # odd shard length: windows and tails on odd samples
+    odd = torch.complex(
+        torch.randn((b3, nt3 * tl3), generator=gen, device=DEV),
+        torch.randn((b3, nt3 * tl3), generator=gen, device=DEV),
+    )
+    err = 0.0
+    for xx, nt, ov in [(x, n_time, ov) for ov in ovs] + also + [(odd, nt3, ovs[0]), (odd, nt3, 0), (odd, 1, tl3)]:
+        got = halo_windows(xx, nt, ov)
+        torch.cuda.synchronize()
+        ref = halo_windows_ref(xx, nt, ov)
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            fail(f"halo differs from the plain version at x {tuple(xx.shape)}, n_time={nt}, ov={ov}")
+        err = max(err, float(torch.view_as_real(got - ref).abs().max()))
+    b, t = x.shape
+    t_local = t // n_time
+    entry = None
+    for ov in ovs:
+        w = t_local + ov
+        lib = lambda: torch.nn.functional.pad(x, (0, ov)).unfold(-1, w, t_local).contiguous()
+        if not torch.equal(lib().transpose(0, 1), halo_windows(x, n_time, ov)):
+            fail("library yardstick does not compute the halo kernel's function")
+        # one read of x, one write of the windows
+        bms, by = bound(b * t * 8 + n_time * b * w * 8, 0)
+        tm = {
+            "ms": time_ms(lambda: halo_windows(x, n_time, ov), 10),
+            "plain_ms": time_ms(lambda: halo_windows_ref(x, n_time, ov), 5),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lib, 5),
+            "shapes": f"x [{b}, {t}] c64, n_time={n_time}, ov={ov} -> [{n_time}, {b}, {w}] c64",
+        }
+        if entry is None:
+            entry = {
+                "name": "halo", "route": "cuda",
+                "source": "liquiddsp_tpu_torch/csrc/halo.cu",
+                "replaces": "liquiddsp_tpu/parallel/halo.py:110",
+                "max_abs_err": err, **tm,
+                "also_checked": [
+                    f"x [{xx.shape[0]}, {xx.shape[1]}], n_time={nt}, ov={ov}" for xx, nt, ov in also],
+            }
+        else:
+            entry["coded_config"] = tm
+    return entry
+
+
+def check_path_shapes(kernels, label, x, cfg, k: int, gen: torch.Generator) -> None:
+    """Kernels 1-3 against their plain versions at the shapes one more path
+    gives them: ``x`` is the [rows, samples] tensor that path's local receiver
+    sees, the candidates are the ``k`` a row that the detector finds there.
+    Not timed. The Viterbi kernel sees lam [960, 1086, 2] in every path that
+    runs it (64 rows x 15 slots, block and sharded alike), which
+    ``check_viterbi`` holds."""
+    spec = fs.FrameSpec(cfg)
+    errs = {"correlator": compare_correlator(x)[0]}
+    starts = detector.detect(x, k, fine=False).start
+    errs["extract"] = compare_extract(x, starts, spec.frame_samples)
+    errs["recover"] = compare_recover(x, starts, spec.frame_syms, gen)[0]
+    for entry in kernels:
+        if entry["name"] in errs:
+            entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
+            entry.setdefault("also_checked", []).append(
+                f"{label}: x [{x.shape[0]}, {x.shape[1]}], {k} slots a row, "
+                f"n={spec.frame_samples}, {spec.frame_syms} syms")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -313,15 +440,16 @@ def config_name(cfg) -> str:
 def check_frames(res, payloads, n_frames: int, min_share: float, cfg) -> tuple[int, int]:
     spec = fs.FrameSpec(cfg)
     k = res.mask.shape[1]
-    if res.payload.shape != (BATCH, k, cfg.payload_len) or res.payload.dtype != torch.uint8:
+    batch = payloads.shape[0]
+    if res.payload.shape != (batch, k, cfg.payload_len) or res.payload.dtype != torch.uint8:
         fail(f"payload has shape {tuple(res.payload.shape)} {res.payload.dtype}")
-    if res.symbols.shape != (BATCH, k, spec.frame_syms):
+    if res.symbols.shape != (batch, k, spec.frame_syms):
         fail(f"symbols have shape {tuple(res.symbols.shape)}")
     if not bool(torch.isfinite(torch.view_as_real(res.symbols)).all()):
         fail("symbols are not finite")
     valid = res.payload_valid
     exact = (res.payload == payloads[:, None, :]).all(dim=-1) & valid
-    n_ok, n_exact, expected = int(valid.sum()), int(exact.sum()), n_frames * BATCH
+    n_ok, n_exact, expected = int(valid.sum()), int(exact.sum()), n_frames * batch
     if n_exact != n_ok:
         fail(f"{n_ok - n_exact} valid payloads differ from what was sent")
     if n_ok < min_share * expected or n_ok > expected:
@@ -329,21 +457,235 @@ def check_frames(res, payloads, n_frames: int, min_share: float, cfg) -> tuple[i
     return n_ok, expected
 
 
+COMPARED = ("mask", "start", "header_valid", "payload_valid", "payload", "symbols")
+
+
+def by_start(res, rows=slice(None)) -> dict:
+    """The compared fields of ``rows`` on the host with every row's slots put
+    in the order of their start, detected slots first. The receiver orders
+    its slots by correlation score, and at a high SNR the scores of two
+    frames differ by less than float32 rounding does between two runs, so
+    slot order is no part of the result."""
+    f = {n: getattr(res, n)[rows].cpu() for n in COMPARED}
+    key = torch.where(f["mask"], f["start"].to(torch.int64), torch.iinfo(torch.int64).max)
+    order = torch.sort(key, dim=1, stable=True).indices
+    for n, v in f.items():
+        idx = order.reshape(order.shape + (1,) * (v.dim() - 2)).expand(v.shape)
+        f[n] = torch.gather(v, 1, idx)
+    return f
+
+
+def same_results(what, a: dict, b: dict) -> None:
+    """Two runs (``by_start`` dicts) found and decoded the same frames. What
+    an undetected slot holds is noise and is not compared."""
+    m, pv = a["mask"], a["payload_valid"]
+    if not torch.equal(m, b["mask"]) or not torch.equal(a["start"][m], b["start"][m]):
+        fail(f"{what}: the two runs disagree on the frames found")
+    for name in ("header_valid", "payload_valid"):
+        if not torch.equal(a[name], b[name]):
+            fail(f"{what}: the two runs disagree on {name}")
+    if not torch.equal(a["payload"][pv], b["payload"][pv]):
+        fail(f"{what}: the two runs disagree on payload bytes")
+    d = float(torch.max(torch.abs(a["symbols"][m] - b["symbols"][m])))
+    sc = float(torch.max(torch.abs(a["symbols"][m])))
+    if not d <= 2e-3 * sc:  # f32 sums in another order through the chain
+        fail(f"{what}: symbols differ by {d} (scale {sc})")
+
+
 def check_against_cpu(x, res, cfg, max_frames: int) -> None:
     """Rows 0-1 decoded on the CPU through the plain versions must give the
     same frames as the GPU run."""
     ref = framesync_fixed(x[:2].cpu(), cfg, max_frames, device="cpu")
-    for name in ("mask", "start", "header_valid", "payload_valid"):
-        if not torch.equal(getattr(ref, name), getattr(res, name)[:2].cpu()):
-            fail(f"GPU and CPU runs disagree on {name} ({cfg})")
-    pv = ref.payload_valid
-    if not torch.equal(ref.payload[pv], res.payload[:2].cpu()[pv]):
-        fail(f"GPU and CPU runs disagree on payload bytes ({cfg})")
-    m = ref.mask
-    d = torch.max(torch.abs(ref.symbols[m] - res.symbols[:2].cpu()[m]))
-    s = torch.max(torch.abs(ref.symbols[m]))
-    if not float(d) <= 2e-3 * float(s):  # f32 sums in another order through the chain
-        fail(f"GPU and CPU symbols differ by {float(d)} (scale {float(s)})")
+    same_results(f"GPU against CPU ({config_name(cfg)})", by_start(ref),
+                 by_start(res, slice(0, 2)))
+
+
+def counted(what: str, cfg, halo: int, step):
+    """Drive one step of a path with the kernels' launch counters set to 0
+    just before and read just after; fail unless each kernel of that path was
+    launched exactly once. Returns (the step's result, the counts)."""
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    res = step()
+    torch.cuda.synchronize()
+    got = dict(_cuda.LAUNCHES)
+    want = {"correlator": 1, "extract": 1, "recover": 1,
+            "viterbi": 1 if cfg.inner_code else 0, "halo": halo}
+    if got != want:
+        fail(f"{what} launched {got}, expected {want}")
+    return res, got
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: the time-sharded receiver
+# ---------------------------------------------------------------------------
+
+
+def check_stream_frames(
+    what, valid, start, payload, payloads, starts, whole, min_share, t_local=None, ov=0
+) -> tuple[int, int, int]:
+    """Hold decoded slots [B, S] (``valid``, absolute ``start``, ``payload``)
+    against the stream that ``long_stream`` laid out: every valid slot sits on
+    a true frame start +-1 and carries that frame's payload, no frame is
+    decoded twice, and at least ``min_share`` of the whole frames are decoded.
+    Returns (decoded, whole frames, decoded frames that run across a shard
+    boundary of ``t_local``)."""
+    dist = (start.to(torch.int64)[:, :, None] - starts[:, None, :]).abs()  # [B, S, n_slots]
+    near, idx = dist.min(dim=-1)
+    if bool((valid & (near > 1)).any()):
+        fail(f"{what}: {int((valid & (near > 1)).sum())} valid frames lie on no true start")
+    sent = torch.gather(payloads, 1, idx[:, :, None].expand(-1, -1, payloads.shape[-1]))
+    wrong = valid & ~(sent == payload).all(dim=-1)
+    if bool(wrong.any()):
+        fail(f"{what}: {int(wrong.sum())} valid payloads differ from what was sent")
+    times = torch.zeros(starts.shape, dtype=torch.int64, device=starts.device)
+    times.scatter_add_(1, idx, valid.to(torch.int64))
+    if bool((times > 1).any()):
+        fail(f"{what}: {int((times > 1).sum())} frames were decoded more than once")
+    n_ok, expected = int(((times == 1) & whole).sum()), int(whole.sum())
+    if n_ok < min_share * expected:
+        fail(f"{what}: decoded {n_ok} of {expected} whole frames, need at least {min_share:.0%}")
+    n_cross = 0
+    if t_local is not None:
+        cross = whole & (starts % t_local >= t_local - ov) & (times == 1)
+        n_cross = int(cross.sum())
+        if n_cross == 0:
+            fail(f"{what}: no decoded frame runs across a shard boundary")
+    return n_ok, expected, n_cross
+
+
+def check_metrics(what, res, samples: int) -> None:
+    """LinkMetrics, summed on the card, against the host's own count."""
+    m = LinkMetrics.from_results(res, samples)
+    host = res.to_numpy()
+    hv = host["header_valid"]
+    want = (samples, int(host["mask"].sum()), int(hv.sum()), int(host["payload_valid"].sum()))
+    got = (int(m.samples), int(m.frames_detected), int(m.headers_valid), int(m.payloads_valid))
+    if got != want:
+        fail(f"{what}: LinkMetrics {got} differ from the host's count {want}")
+    for name, total in (("evm", m.sum_evm_db), ("rssi", m.sum_rssi_db)):
+        ref = float(host[name][hv].astype(np.float64).sum())
+        if not abs(float(total) - ref) <= 1e-3 * max(1.0, abs(ref)):  # f32 sum of a few thousand dB values
+            fail(f"{what}: LinkMetrics sum of {name} {float(total)} differs from {ref}")
+
+
+def sharded_step(cfg, snr, share, stream, card) -> dict:
+    """Phase 5 for one config on ``stream`` (what ``long_stream`` returned).
+    Returns the launch counts of one step."""
+    what = f"sharded path {config_name(cfg)}"
+    x, payloads, starts, whole = stream
+    mesh = make_mesh(n_time=SH_NTIME, n_ch=1, devices=[DEV])
+    t_local = SH_TOTAL // SH_NTIME
+    ov = fs.FrameSpec(cfg).frame_samples - 1
+    k = shard_slots(cfg, t_local)
+    res, got = counted(what, cfg, 1, lambda: sharded_framesync(x, cfg, mesh, max_frames_per_shard=k))
+    if res.mask.shape != (SH_BATCH, SH_NTIME * k):
+        fail(f"{what}: slots have shape {tuple(res.mask.shape)}")
+    n_ok, expected, n_cross = check_stream_frames(
+        what, res.payload_valid, res.start, res.payload, payloads, starts, whole,
+        share, t_local, ov)
+    check_metrics(what, res, SH_TOTAL)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded_framesync(x, cfg, mesh, max_frames_per_shard=k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step = float(np.median(times))
+    print(
+        f"{what} payload {cfg.payload_len} at {snr:g} dB, {SH_BATCH} x {SH_TOTAL} in "
+        f"{SH_NTIME} shards (local receiver [{SH_BATCH * SH_NTIME}, {t_local + ov}], {k} slots a shard): "
+        f"{n_ok}/{expected} whole frames exactly once and bit-exact, {n_cross} of them across a "
+        f"shard boundary, LinkMetrics equal the host's count, "
+        f"step {step * 1e3:.2f} ms, {SH_BATCH * SH_TOTAL / step:.4g} samples/s [{card}]"
+    )
+    return got
+
+
+def streaming_shapes(cfg) -> tuple[int, int]:
+    """(window length, slots a shard) of a ShardedStreamingRx step over
+    chunks of SH_TOTAL samples: [carry | chunk | pad to a multiple of the
+    shards]."""
+    real = SH_TOTAL + fs.FrameSpec(cfg).frame_samples - 1
+    window = real + (-real) % SH_NTIME
+    return window, shard_slots(cfg, window // SH_NTIME)
+
+
+def streaming_run(cfg, snr, stream, card) -> dict:
+    """Phase 6: three consecutive chunks of one stream through
+    ShardedStreamingRx. Returns the launch counts of one step."""
+    what = f"streaming {config_name(cfg)}"
+    x, payloads, starts, whole = stream
+    total = x.shape[1]
+    n_chunks = total // SH_TOTAL
+    mesh = make_mesh(n_time=SH_NTIME, n_ch=1, devices=[DEV])
+    ov = fs.FrameSpec(cfg).frame_samples - 1
+    window, k = streaming_shapes(cfg)
+    rx = ShardedStreamingRx(cfg, mesh, batch=SH_BATCH, chunk_len=SH_TOTAL, max_frames_per_shard=k)
+    if rx.window != window:
+        fail(f"{what}: the receiver's window is {rx.window} samples, the kernels were checked at {window}")
+    valid, start, payload, detected = [], [], [], 0
+    for c in range(n_chunks):
+        chunk = x[:, c * SH_TOTAL : (c + 1) * SH_TOTAL]
+        (res, metrics), got = counted(f"{what}, step {c}", cfg, 1, lambda: rx.step(chunk))
+        valid.append(res.payload_valid)
+        start.append(res.start.to(torch.int64) + res.epoch)
+        payload.append(res.payload)
+        detected += int(metrics.payloads_valid)
+    valid, start, payload = (torch.cat(v, dim=1) for v in (valid, start, payload))
+    n_ok, expected, _ = check_stream_frames(
+        what, valid, start, payload, payloads, starts, whole, 1.0)
+    if detected != n_ok:
+        fail(f"{what}: the steps' LinkMetrics count {detected} valid payloads, the host {n_ok}")
+    # frames that run across a super-block edge: decoded from the carry
+    f = ov + 1
+    edge = whole & (starts % SH_TOTAL > SH_TOTAL - f) & (starts < total - SH_TOTAL)
+    if int(edge.sum()) == 0:
+        fail(f"{what}: no frame runs across a super-block edge")
+    print(
+        f"{what} at {snr:g} dB, {n_chunks} chunks of {SH_BATCH} x {SH_TOTAL} "
+        f"({total} samples a channel, windows of {window} in {SH_NTIME} shards, {k} slots a shard): "
+        f"{n_ok}/{expected} whole frames exactly once and "
+        f"bit-exact at start + epoch, {int(edge.sum())} of them across a super-block edge [{card}]"
+    )
+    return got
+
+
+def config_class_run(cfg, snr, block_stream, sh_stream, card) -> tuple[dict, dict]:
+    """Phase 7 for one config class: the block receiver and the sharded one,
+    each against the payloads sent and against the CPU's plain versions.
+    Returns the launch counts of the block step and of the sharded step."""
+    name = config_name(cfg)
+    x, payloads, n_frames, max_frames = block_stream
+    res, got_block = counted(
+        f"config class {name}, block", cfg, 0, lambda: framesync_fixed(x, cfg, max_frames))
+    n_ok, expected = check_frames(res, payloads, n_frames, 1.0, cfg)
+    check_against_cpu(x, res, cfg, max_frames)
+    print(
+        f"config class {name} payload {cfg.payload_len} at {snr:g} dB, block receiver "
+        f"{CL_BATCH} x {BLOCK}: {n_ok}/{expected} frames bit-exact, CPU run agrees [{card}]"
+    )
+    what = f"config class {name}, sharded"
+    x, payloads, starts, whole = sh_stream
+    t_local = CL_SH_TOTAL // CL_SH_NTIME
+    ov = fs.FrameSpec(cfg).frame_samples - 1
+    k = shard_slots(cfg, t_local)
+    mesh = make_mesh(n_time=CL_SH_NTIME, n_ch=1, devices=[DEV])
+    res, got_sharded = counted(
+        what, cfg, 1, lambda: sharded_framesync(x, cfg, mesh, max_frames_per_shard=k))
+    n_ok, expected, n_cross = check_stream_frames(
+        what, res.payload_valid, res.start, res.payload, payloads, starts, whole,
+        1.0, t_local, ov)
+    check_metrics(what, res, CL_SH_TOTAL)
+    cpu_mesh = make_mesh(n_time=CL_SH_NTIME, n_ch=1, devices=["cpu"])
+    ref = sharded_framesync(x.cpu(), cfg, cpu_mesh, max_frames_per_shard=k)
+    same_results(f"{what}, GPU against CPU", by_start(res), by_start(ref))
+    print(
+        f"{what} {CL_SH_BATCH} x {CL_SH_TOTAL} in {CL_SH_NTIME} shards: {n_ok}/{expected} whole "
+        f"frames exactly once and bit-exact, {n_cross} across a shard boundary, CPU run agrees [{card}]"
+    )
+    return got_block, got_sharded
 
 
 def main() -> None:
@@ -363,6 +705,11 @@ def main() -> None:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
     streams = [tiled_stream(cfg, snr, BATCH, BLOCK, gen) for cfg, snr, _ in CONFIGS]
+    sh_streams = [long_stream(cfg, snr, SH_BATCH, SH_TOTAL, gen) for cfg, snr, _ in CONFIGS]
+    st_cfg, st_snr = CONFIGS[0][0], CONFIGS[0][1]
+    st_stream = long_stream(st_cfg, st_snr, SH_BATCH, 3 * SH_TOTAL, gen)
+    cl_streams = [tiled_stream(cfg, snr, CL_BATCH, BLOCK, gen) for cfg, snr in CLASS_CONFIGS]
+    cl_sh_streams = [long_stream(cfg, snr, CL_SH_BATCH, CL_SH_TOTAL, gen) for cfg, snr in CLASS_CONFIGS]
     torch.cuda.synchronize()
 
     # kernel shapes of the main path: the candidates the detector finds
@@ -372,35 +719,49 @@ def main() -> None:
     starts_a, starts_b = det_a.start.clone(), det_b.start.clone()
     starts_a[0, -1] = BLOCK - 50  # a window that runs past the end of the row
     spec_a, spec_b = fs.FrameSpec(CONFIGS[0][0]), fs.FrameSpec(CONFIGS[1][0])
+    # the streams of the other paths, as their halo kernel sees them: the
+    # streaming receiver's [carry | chunk | pad] window, the config classes'
+    # 2 x 131,072
+    st_window, st_k = streaming_shapes(st_cfg)
+    ov_of = lambda cfg: fs.FrameSpec(cfg).frame_samples - 1
+    st_x = torch.nn.functional.pad(  # the window of the first step: a zero carry
+        st_stream[0][:, :SH_TOTAL], (ov_of(st_cfg), st_window - SH_TOTAL - ov_of(st_cfg)))
+    halo_also = [(st_x, SH_NTIME, ov_of(st_cfg))] + [
+        (stream[0], CL_SH_NTIME, ov_of(cfg))
+        for (cfg, _), stream in zip(CLASS_CONFIGS, cl_sh_streams)]
     kernels = [
         check_correlator(x_a),
         check_extract(x_a, [(starts_a, spec_a.frame_samples), (starts_b, spec_b.frame_samples)]),
         check_recover(x_a, [(starts_a, spec_a.frame_syms), (starts_b, spec_b.frame_syms)], gen),
         check_viterbi(gen),
+        check_halo(sh_streams[0][0], SH_NTIME, [ov_of(CONFIGS[0][0]), ov_of(CONFIGS[1][0])],
+                   halo_also, gen),
     ]
-    print(f"kernels: all four agree with their plain versions ({time.perf_counter() - t_start:.0f} s)")
+    # kernels 1-3 again at the shapes of every other path: the windows that
+    # its halo kernel builds, seen as rows of the local receiver
+    rows = lambda x, n_time, cfg: halo_windows(x, n_time, ov_of(cfg)).reshape(x.shape[0] * n_time, -1)
+    for (cfg, _, _), stream in zip(CONFIGS, sh_streams):
+        check_path_shapes(kernels, "sharded " + config_name(cfg), rows(stream[0], SH_NTIME, cfg),
+                          cfg, shard_slots(cfg, SH_TOTAL // SH_NTIME), gen)
+    check_path_shapes(kernels, "streaming " + config_name(st_cfg), rows(st_x, SH_NTIME, st_cfg),
+                      st_cfg, st_k, gen)
+    for (cfg, _), blk, sh in zip(CLASS_CONFIGS, cl_streams, cl_sh_streams):
+        check_path_shapes(kernels, config_name(cfg), blk[0], cfg, blk[3], gen)
+        check_path_shapes(kernels, "sharded " + config_name(cfg), rows(sh[0], CL_SH_NTIME, cfg),
+                          cfg, shard_slots(cfg, CL_SH_TOTAL // CL_SH_NTIME), gen)
+    print(f"kernels: all five agree with their plain versions at the shapes of every path "
+          f"({time.perf_counter() - t_start:.0f} s)")
 
-    # each config's step carries its own counts: set to 0 just before, read
-    # just after. One step launches the correlator, extract and recover once
-    # each, and the Viterbi kernel once where the config has the inner code.
-    results, launches = [], []
+    # each path's step carries its own counts (``counted``). One
+    # block-receiver step launches the correlator, extract and recover once
+    # each, and the Viterbi kernel once where the config has the inner code;
+    # a sharded or streaming step launches the halo kernel once besides.
+    results, launches = [], {}
     for (cfg, _, _), (x, _, _, max_frames) in zip(CONFIGS, streams):
-        _cuda.reset_launches()
-        results.append(framesync_fixed(x, cfg, max_frames))
-        torch.cuda.synchronize()
-        got = dict(_cuda.LAUNCHES)
-        want = {"correlator": 1, "extract": 1, "recover": 1,
-                "viterbi": 1 if cfg.inner_code else 0}
-        if got != want:
-            fail(f"config {config_name(cfg)} launched {got}, expected {want}")
-        launches.append(got)
-    for k in kernels:
-        k["launches"] = sum(d[k["name"]] for d in launches)
-        k["launches_by_config"] = {
-            config_name(cfg): d[k["name"]] for (cfg, _, _), d in zip(CONFIGS, launches)
-        }
-        if k["launches"] < 1:
-            fail(f"the main path never launched the {k['name']} kernel")
+        res, got = counted(f"config {config_name(cfg)}", cfg, 0,
+                           lambda: framesync_fixed(x, cfg, max_frames))
+        results.append(res)
+        launches[config_name(cfg)] = got
 
     for (cfg, snr, share), (x, payloads, n_frames, max_frames), res in zip(
         CONFIGS, streams, results
@@ -420,8 +781,24 @@ def main() -> None:
             f"payload {cfg.payload_len} at {snr:g} dB: {n_ok}/{expected} frames bit-exact, "
             f"step {step * 1e3:.2f} ms, {BATCH * BLOCK / step:.4g} samples/s [{card}]"
         )
-    for (cfg, _, _), d in zip(CONFIGS, launches):
-        print(f"launches on the main path, one step of config {config_name(cfg)}: {d}")
+    print(f"main path done ({time.perf_counter() - t_start:.0f} s)")
+
+    for (cfg, snr, share), stream in zip(CONFIGS, sh_streams):
+        launches["sharded " + config_name(cfg)] = sharded_step(cfg, snr, share, stream, card)
+    del sh_streams, streams, results
+    launches["streaming " + config_name(st_cfg)] = streaming_run(st_cfg, st_snr, st_stream, card)
+    print(f"sharded path and streaming done ({time.perf_counter() - t_start:.0f} s)")
+    for (cfg, snr), blk, sh in zip(CLASS_CONFIGS, cl_streams, cl_sh_streams):
+        launches[config_name(cfg)], launches["sharded " + config_name(cfg)] = config_class_run(
+            cfg, snr, blk, sh, card)
+
+    for k in kernels:
+        k["launches_by_config"] = {label: d[k["name"]] for label, d in launches.items()}
+        k["launches"] = sum(k["launches_by_config"].values())
+        if k["launches"] < 1:
+            fail(f"no path launched the {k['name']} kernel")
+    for label, d in launches.items():
+        print(f"launches, one step of {label}: {d}")
     print(f"total {time.perf_counter() - t_start:.0f} s")
 
     print(f"device: {card}")

@@ -7,8 +7,12 @@ first use (``kernels/_cuda.py``); each has a plain PyTorch version beside it
 that is taken only for tensors that lie on the CPU.
 
 Ported so far: the single-device block receiver, TX ``phy.framegen.framegen``
--> RX ``phy.framesync.framesync_fixed``. Entry points run on the GPU unless
-the caller passes ``device="cpu"``.
+-> RX ``phy.framesync.framesync_fixed``, and the time-sharded receiver on one
+device: ``parallel.halo.sharded_framesync``, its streaming wrapper
+``runtime.distributed_stream.ShardedStreamingRx`` and
+``utils.metrics.LinkMetrics``. Entry points run on the GPU unless the caller
+passes ``device="cpu"``. ``dryrun_sharded(n_time)`` is the quick proof of
+the sharded path.
 """
 
 from liquiddsp_tpu_torch.core.config import (  # noqa: F401
@@ -18,4 +22,6 @@ from liquiddsp_tpu_torch.core.config import (  # noqa: F401
     OuterCode,
 )
 
-__version__ = "0.1.0"
+from liquiddsp_tpu_torch.dryrun import dryrun_sharded  # noqa: F401
+
+__version__ = "0.2.0"

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("correlator.cu", "extract.cu", "recover.cu", "viterbi.cu")
+SOURCES = ("correlator.cu", "extract.cu", "recover.cu", "viterbi.cu", "halo.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,9 +32,11 @@ NVCC_FLAGS = (
 
 # launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else
-LAUNCHES: dict[str, int] = {"correlator": 0, "extract": 0, "recover": 0, "viterbi": 0}
+LAUNCHES: dict[str, int] = {
+    "correlator": 0, "extract": 0, "recover": 0, "viterbi": 0, "halo": 0,
+}
 
-_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
     # x, templates, rho2, fbin, corr, energy, B, T, inv_es, stream
     "lq_correlate_reduced": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
@@ -44,6 +46,8 @@ _ARGTYPES = {
     "lq_recover_symbols": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # lam, signs, dec, bits, B, steps, stream
     "lq_viterbi": [_vp, _vp, _vp, _vp, _i, _i, _vp],
+    # x, windows, left neighbours' windows, B, n_time, T_local, ov, row stride, stream
+    "lq_halo_windows": [_vp, _vp, _vp, _i, _i, _i, _i, _ll, _vp],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,13 +1,17 @@
-"""Systematic GF(2) linear block codes: the extended Golay(24,12) code.
+"""Systematic GF(2) linear block codes: Hamming(7,4), Hamming(12,8),
+SEC-DED(22,16)/(39,32)/(72,64), Golay(24,12).
 
-Counterpart of ``liquiddsp_tpu/ops/fec/block.py``. ``LinearBlockCode`` is
-generic over G = [I_k | P]; only the Golay constructor is ported so far (the
-header always uses it, and it is outer code 1). The Hamming / SEC-DED
-constructors wait; ``registry`` carries their (n, k) for frame geometry.
+Counterpart of ``liquiddsp_tpu/ops/fec/block.py``: the outer-FEC family
+(outer codes 1 and 3-7; the header always uses Golay). The constructions are
+the standard ones (shortened Hamming, Hamming plus overall parity, extended
+Golay); TX and RX share them. Correction radii: 1 bit for Hamming and
+SEC-DED, 3 bits for Golay.
 
 Encode is a bit-level product with the parity matrix P (``m @ P mod 2`` in
-float32, exact since row sums are tiny); Golay decode is the arithmetic
-table-free decoder on packed 12-bit syndromes.
+float32, exact since row sums are tiny). Decode is a syndrome product, then
+for the single-error codes one comparison of the packed syndrome against the
+k data-column syndromes, and for Golay the arithmetic table-free decoder on
+packed 12-bit syndromes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,15 @@ import numpy as np
 import torch
 
 from liquiddsp_tpu_torch.core.device import device_const
+
+
+def _hamming_parity_matrix(k: int, r: int) -> np.ndarray:
+    """P (k x r) of the shortened Hamming code: data columns are the first k
+    non-power-of-two values in 1..2**r-1."""
+    cols = [v for v in range(1, 1 << r) if v & (v - 1)][:k]
+    if len(cols) != k:
+        raise ValueError(f"no Hamming code with {k} data and {r} parity bits")
+    return np.array([[(c >> j) & 1 for j in range(r)] for c in cols], dtype=np.uint8)
 
 
 def _golay_b_matrix() -> np.ndarray:
@@ -111,10 +124,6 @@ class LinearBlockCode:
 
     def decode(self, bits: torch.Tensor) -> torch.Tensor:
         """bits [..., nblocks*n] int8 -> corrected data [..., nblocks*k] int8."""
-        if self.name != "golay2412":
-            raise NotImplementedError(
-                f"block decode of {self.name} is not ported yet"
-            )
         dev = bits.device
         weights = torch.tensor(
             (1 << np.arange(self.r)).astype(np.int32), device=dev
@@ -124,11 +133,57 @@ class LinearBlockCode:
         data, par = c[..., : self.k], c[..., self.k :]
         syn = torch.remainder(data.to(torch.float32) @ self._p(dev), 2.0).to(torch.int32) ^ par
         sidx = torch.sum(syn * weights, dim=-1).to(torch.int32)  # packed syndrome
-        e_u = _decode_golay_packed(sidx)
-        shifts = torch.arange(self.k, dtype=torch.int32, device=dev)
-        err = (e_u[..., None] >> shifts) & 1
+        if self.name == "golay2412":
+            e_u = _decode_golay_packed(sidx)
+            shifts = torch.arange(self.k, dtype=torch.int32, device=dev)
+            err = (e_u[..., None] >> shifts) & 1
+        else:
+            # the syndrome of a single error in data bit j is row j of P: a
+            # correction fires iff sidx matches one of them. A parity-bit
+            # error (sidx = 1 << j) matches no data row: data unchanged.
+            rows = device_const(
+                ("block_rows", self.name),
+                lambda: (self.p.astype(np.int64) @ (1 << np.arange(self.r))).astype(np.int32),
+                dev,
+            )
+            err = (sidx[..., None] == rows).to(torch.int32)
         corrected = (data ^ err).to(torch.int8)
         return corrected.reshape(bits.shape[:-1] + (shape[-2] * self.k,))
+
+
+@functools.lru_cache(maxsize=None)
+def hamming74() -> LinearBlockCode:
+    return LinearBlockCode("hamming74", _hamming_parity_matrix(4, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def hamming128() -> LinearBlockCode:
+    """Hamming(12,8): Hamming(15,11) shortened to 8 data bits."""
+    return LinearBlockCode("hamming128", _hamming_parity_matrix(8, 4))
+
+
+def _secded(k: int, r: int, name: str) -> LinearBlockCode:
+    """Shortened Hamming + overall parity: (k + r + 1, k) SEC-DED code. The
+    overall parity makes the codeword weight even; as a column of P it folds
+    in each data bit's own Hamming-parity contributions."""
+    p_ham = _hamming_parity_matrix(k, r)
+    col = (1 + p_ham.sum(axis=1)) % 2
+    return LinearBlockCode(name, np.concatenate([p_ham, col[:, None]], axis=1))
+
+
+@functools.lru_cache(maxsize=None)
+def secded2216() -> LinearBlockCode:
+    return _secded(16, 5, "secded2216")
+
+
+@functools.lru_cache(maxsize=None)
+def secded3932() -> LinearBlockCode:
+    return _secded(32, 6, "secded3932")
+
+
+@functools.lru_cache(maxsize=None)
+def secded7264() -> LinearBlockCode:
+    return _secded(64, 7, "secded7264")
 
 
 @functools.lru_cache(maxsize=None)

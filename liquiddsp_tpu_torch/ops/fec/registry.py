@@ -8,11 +8,8 @@ V27P45, V27P56, V27P67, V27P78}. Counterpart of
 Pipeline position: payload bytes + CRC24 -> **outer** encode (bytes -> bits)
 -> **inner** encode (bits -> bits) -> modulate. Bit-level block codes pad the
 message bits with zeros to a whole number of blocks; the pad is dropped on
-decode using the message byte length.
-
-The *length* functions are integer arithmetic and cover every code, so that
-``FrameSpec`` is right for all 616 configs. Encode/decode of Reed-Solomon,
-Hamming and SEC-DED are not ported yet and raise ``NotImplementedError``.
+decode using the message byte length. Reed-Solomon (outer code 2) works on
+bytes and splits the message into blocks of at most 223.
 """
 
 from __future__ import annotations
@@ -20,30 +17,20 @@ from __future__ import annotations
 import torch
 
 from liquiddsp_tpu_torch.ops import bits as bitops
-from liquiddsp_tpu_torch.ops.fec import block, conv
+from liquiddsp_tpu_torch.ops.fec import block, conv, rs
 
-# (n, k) of the bit-level outer block codes
-BLOCK_NK = {1: (24, 12), 3: (7, 4), 4: (12, 8), 5: (22, 16), 6: (39, 32), 7: (72, 64)}
-
-RS_KK = 223  # Reed-Solomon data bytes per full block
-RS_NROOTS = 32  # parity bytes per block
-
-
-def rs_block_sizes(msg_len: int) -> list[int]:
-    """Split a message of ``msg_len`` bytes into near-equal blocks <= 223."""
-    nb = -(-msg_len // RS_KK)
-    base, rem = divmod(msg_len, nb)
-    return [base + (1 if i < rem else 0) for i in range(nb)]
-
-
-def rs_encoded_len(msg_len: int) -> int:
-    return msg_len + RS_NROOTS * len(rs_block_sizes(msg_len))
+_BLOCK_CODES = {
+    1: block.golay2412,
+    3: block.hamming74,
+    4: block.hamming128,
+    5: block.secded2216,
+    6: block.secded3932,
+    7: block.secded7264,
+}
 
 
 def _block_code(outer_code: int) -> block.LinearBlockCode:
-    if outer_code == 1:
-        return block.golay2412()
-    raise NotImplementedError(f"outer code {outer_code} is not ported yet")
+    return _BLOCK_CODES[outer_code]()
 
 
 def outer_encoded_bits(msg_len: int, outer_code: int) -> int:
@@ -52,13 +39,15 @@ def outer_encoded_bits(msg_len: int, outer_code: int) -> int:
     if outer_code == 0:
         return nbits
     if outer_code == 2:
-        return 8 * rs_encoded_len(msg_len)
-    n, k = BLOCK_NK[outer_code]
-    return -(-nbits // k) * n
+        return 8 * rs.encoded_len(msg_len)
+    c = _block_code(outer_code)
+    return -(-nbits // c.k) * c.n
 
 
 def outer_encode(msg_bytes: torch.Tensor, outer_code: int) -> torch.Tensor:
     """uint8 [..., L] -> coded bits int8 [..., outer_encoded_bits(L)]."""
+    if outer_code == 2:
+        return bitops.bytes_to_bits(rs.encode(msg_bytes))
     bits = bitops.bytes_to_bits(msg_bytes)
     if outer_code == 0:
         return bits
@@ -72,6 +61,8 @@ def outer_encode(msg_bytes: torch.Tensor, outer_code: int) -> torch.Tensor:
 
 def outer_decode(coded_bits: torch.Tensor, msg_len: int, outer_code: int) -> torch.Tensor:
     """Coded bits -> corrected message bytes uint8 [..., msg_len]."""
+    if outer_code == 2:
+        return rs.decode(bitops.bits_to_bytes(coded_bits), msg_len)
     if outer_code == 0:
         return bitops.bits_to_bytes(coded_bits[..., : 8 * msg_len])
     data_bits = _block_code(outer_code).decode(coded_bits)

@@ -11,9 +11,9 @@ loopback consistency holds by construction).
 All constellations have unit average energy. Hard demodulation is a
 minimum-distance search expressed as an inner-product score matrix.
 
-Counterpart of ``liquiddsp_tpu/ops/modem.py``. The tables cover all 11
-modulations; the differential (DPSK) branches of modulate / demodulate are
-not ported yet and raise ``NotImplementedError``.
+Counterpart of ``liquiddsp_tpu/ops/modem.py``, all 11 modulations. The
+differential (DPSK) schemes accumulate the phase steps over the last axis on
+transmit and demodulate the step between neighbouring symbols on receive.
 """
 
 from __future__ import annotations
@@ -170,17 +170,41 @@ def constellation_t(mod: int, device: torch.device) -> torch.Tensor:
     return device_const(("constellation", int(mod)), lambda: constellation(mod), device)
 
 
-def _no_differential(mod: int) -> None:
-    if is_differential(mod):
-        raise NotImplementedError(
-            "differential modulations (DPSK2/4/8) are not ported yet"
-        )
+@functools.lru_cache(maxsize=None)
+def _dpsk_tables(mod: int) -> tuple[np.ndarray, np.ndarray]:
+    """For a differential scheme of M phases: the phase position of every
+    gray-coded data value [M] int64, and the M absolute phases [M] complex64."""
+    m = 1 << MOD_BPS[mod]
+    pos_of_data = np.empty(m, dtype=np.int64)
+    for pos in range(m):
+        pos_of_data[_gray_encode(np.array(pos)).item()] = pos
+    phases = np.exp(2j * np.pi * np.arange(m) / m).astype(np.complex64)
+    return pos_of_data, phases
 
 
 def modulate(indices: torch.Tensor, mod: int) -> torch.Tensor:
     """Symbol indices [..., n] -> complex64 symbols [..., n]."""
-    _no_differential(mod)
-    return constellation_t(mod, indices.device)[indices.to(torch.int64)]
+    dev = indices.device
+    if not is_differential(mod):
+        return constellation_t(mod, dev)[indices.to(torch.int64)]
+    # differential: the phase position is the running sum of the steps mod M
+    # over the last axis; the M phases come from a table, so that the symbols
+    # are the same on every device
+    pos_np, phases_np = _dpsk_tables(int(mod))
+    steps = device_const(("dpsk_pos", int(mod)), lambda: pos_np, dev)[indices.to(torch.int64)]
+    acc = torch.cumsum(steps, dim=-1) % len(pos_np)
+    return device_const(("dpsk_phases", int(mod)), lambda: phases_np, dev)[acc]
+
+
+def _decision_symbols(symbols: torch.Tensor, mod: int) -> torch.Tensor:
+    """What the decision device sees: the symbols themselves, or for a
+    differential scheme the unit-magnitude step from the symbol before (the
+    first symbol steps from 1)."""
+    if not is_differential(mod):
+        return symbols
+    prev = torch.cat([torch.ones_like(symbols[..., :1]), symbols[..., :-1]], dim=-1)
+    z = symbols * torch.conj(prev)
+    return z / torch.clamp(torch.abs(z), min=1e-12)
 
 
 def demod_hard(symbols: torch.Tensor, mod: int) -> torch.Tensor:
@@ -189,11 +213,11 @@ def demod_hard(symbols: torch.Tensor, mod: int) -> torch.Tensor:
     Min-distance via score = Re(r conj(c)) - |c|^2/2, maximized over the
     constellation (first maximum wins, as ``argmax`` does in both packages).
     """
-    _no_differential(mod)
     table = constellation_t(mod, symbols.device)
+    r = _decision_symbols(symbols, mod)
     scores = (
-        symbols.real[..., None] * table.real
-        + symbols.imag[..., None] * table.imag
+        r.real[..., None] * table.real
+        + r.imag[..., None] * table.imag
         - 0.5 * (torch.abs(table) ** 2)
     )
     return torch.argmax(scores, dim=-1).to(torch.int32)
@@ -205,12 +229,11 @@ def demod_soft_bits(
     """Approximate per-bit LLRs [..., n*bps] (positive = bit 0 more likely).
 
     Max-log-MAP over the constellation: LLR_b = (min_{c:b=1}|r-c|^2 -
-    min_{c:b=0}|r-c|^2) / noise_var.
+    min_{c:b=0}|r-c|^2) / noise_var. For DPSK the differential symbol is used.
     """
-    _no_differential(mod)
     table = constellation_t(mod, symbols.device)
     bps = MOD_BPS[mod]
-    d2 = torch.abs(symbols[..., None] - table) ** 2  # [..., n, M]
+    d2 = torch.abs(_decision_symbols(symbols, mod)[..., None] - table) ** 2  # [..., n, M]
     m_idx = np.arange(table.shape[0])
     inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
     llrs = []

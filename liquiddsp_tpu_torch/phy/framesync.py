@@ -74,13 +74,18 @@ class FrameResults:
     rssi: torch.Tensor  # [B, K] float32 — estimated gain (dB)
     cfo: torch.Tensor  # [B, K] float32 — carrier offset estimate (rad/sample)
     start: torch.Tensor  # [B, K] int32 — frame start sample
+    # host-side 2^30 base of ``start`` for long streams: absolute sample
+    # index = epoch + start. Always 0 out of the receivers themselves; the
+    # streaming wrappers stamp the true value on each result they return.
+    epoch: int = 0
 
     def to_numpy(self) -> dict[str, np.ndarray]:
         """Every field as a numpy array on the host."""
-        return {
-            f.name: getattr(self, f.name).detach().cpu().numpy()
-            for f in dataclasses.fields(self)
-        }
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out[f.name] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -603,10 +608,13 @@ def _dd_phase_track(
     The V&V stage is gated on actual slip risk: the worst plausible
     post-refine drift over this span must reach an appreciable fraction of
     the symmetry angle, and QAM/ASK additionally need enough symbols to
-    average the estimator's modulation self-noise.
+    average the estimator's modulation self-noise. Differential schemes are
+    returned unchanged (immune by construction), with unit weights.
     """
     if modem.is_differential(mod):
-        raise NotImplementedError("differential modulations are not ported yet")
+        if return_weight:
+            return pay, torch.ones(pay.shape, dtype=torch.float32, device=pay.device)
+        return pay
     dev = pay.device
     sym_rot = modem.rotational_symmetry(mod)
     m = int(round(2 * np.pi / sym_rot))

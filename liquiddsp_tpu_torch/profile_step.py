@@ -1,12 +1,17 @@
 """Where one receiver step spends its time on the GPU.
 
-    python3 -m liquiddsp_tpu_torch.profile_step [--out DIR]
+    python3 -m liquiddsp_tpu_torch.profile_step [--sharded] [--out DIR]
 
 For both receiver configs at 64 x 65,536 samples it prints, with the card's
 name and power limit: the time of each stage (host clock around work that
 ends in a synchronise), the whole step, the device-busy share of the step and
 the kernels that take the most device time (torch.profiler), and the peak
-device memory. With ``--out`` it also writes these numbers as JSON.
+device memory. With ``--sharded`` it profiles, after the block receiver and
+in the same process, the time-sharded receiver on the same number of samples
+as 8 channels x 524,288 in 8 time shards (the halo windows are one more
+stage), and counts the device launches of one Reed-Solomon decode at the
+shape a (10,0,2) step gives it. With ``--out`` it also writes these numbers
+as JSON.
 """
 
 from __future__ import annotations
@@ -22,12 +27,17 @@ import torch
 
 from liquiddsp_tpu_torch import FrameConfig
 from liquiddsp_tpu_torch.core.device import resolve_device
+from liquiddsp_tpu_torch.kernels.halo import halo_windows
+from liquiddsp_tpu_torch.ops.fec import rs
+from liquiddsp_tpu_torch.parallel.halo import sharded_framesync
+from liquiddsp_tpu_torch.parallel.mesh import make_mesh
 from liquiddsp_tpu_torch.phy import detector, framesync
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.tables import phy_tables
-from liquiddsp_tpu_torch.streams import tiled_stream
+from liquiddsp_tpu_torch.streams import long_stream, shard_slots, tiled_stream
 
 BATCH, BLOCK = 64, 65536
+SH_BATCH, SH_TOTAL, SH_NTIME = 8, 524288, 8  # the same samples as long channels
 
 
 def _timed(fn, reps: int = 5):
@@ -42,11 +52,28 @@ def _timed(fn, reps: int = 5):
     return out, float(np.median(times))
 
 
-def profile_config(cfg: FrameConfig, snr_db: float, dev, gen) -> dict:
-    x, _, _, k = tiled_stream(cfg, snr_db, BATCH, BLOCK, gen, dev)
+def _device_events(prof) -> list:
+    return [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = False) -> dict:
     tables = phy_tables(cfg, dev)
     spec = fs.FrameSpec(cfg)
-    framesync.framesync_fixed(x, cfg, k, device=dev)  # warm-up
+    stage_ms = {}
+    if sharded:
+        xs, _, _, _ = long_stream(cfg, snr_db, SH_BATCH, SH_TOTAL, gen, dev)
+        mesh = make_mesh(n_time=SH_NTIME, n_ch=1, devices=[dev])
+        t_local, f = SH_TOTAL // SH_NTIME, spec.frame_samples
+        k = shard_slots(cfg, t_local)
+        step = lambda: sharded_framesync(xs, cfg, mesh, max_frames_per_shard=k)
+        step()  # warm-up (builds the kernels at first use)
+        windows, stage_ms["halo windows"] = _timed(lambda: halo_windows(xs, SH_NTIME, f - 1))
+        x = windows.reshape(SH_NTIME * SH_BATCH, t_local + f - 1)
+    else:
+        x, _, _, k = tiled_stream(cfg, snr_db, BATCH, BLOCK, gen, dev)
+        step = lambda: framesync.framesync_fixed(x, cfg, k, device=dev)
+        step()  # warm-up
 
     det, t_detect = _timed(lambda: detector.detect(x, k, fine=False, tables=tables, device=dev))
     (det, syms), t_recover = _timed(
@@ -56,7 +83,7 @@ def profile_config(cfg: FrameConfig, snr_db: float, dev, gen) -> dict:
     _, t_payload = _timed(
         lambda: framesync._finish_fixed(det, syms2, fields, evm_lin, hdr_ref, cfg, tables))
     torch.cuda.reset_peak_memory_stats()
-    _, t_step = _timed(lambda: framesync.framesync_fixed(x, cfg, k, device=dev))
+    _, t_step = _timed(step)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     from torch.profiler import ProfilerActivity, profile
@@ -64,17 +91,18 @@ def profile_config(cfg: FrameConfig, snr_db: float, dev, gen) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        framesync.framesync_fixed(x, cfg, k, device=dev)
+        step()
         torch.cuda.synchronize()
         t_prof = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
-           and e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = _device_events(prof)
     dev_ms = sum(e.device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
     return {
         "config": [cfg.modulation, cfg.inner_code, cfg.outer_code, cfg.payload_len],
+        "path": "sharded_framesync" if sharded else "framesync_fixed",
+        "local_receiver_shape": list(x.shape),
         "snr_db": snr_db, "max_frames": k,
-        "stage_ms": {"detect": t_detect, "extract+fine_cfo+recover": t_recover,
+        "stage_ms": {**stage_ms, "detect": t_detect, "extract+fine_cfo+recover": t_recover,
                      "eq+carrier+header": t_sync, "payload": t_payload},
         "step_ms": t_step, "samples_per_s": BATCH * BLOCK / (t_step * 1e-3),
         "profiled_step_ms": t_prof, "device_busy_ms": dev_ms,
@@ -86,8 +114,32 @@ def profile_config(cfg: FrameConfig, snr_db: float, dev, gen) -> dict:
     }
 
 
+def rs_decode_launches(dev, gen) -> dict:
+    """Device launches and time of one Reed-Solomon decode of 64 x 36 blocks
+    of 67 + 32 bytes (the slots of one (10,0,2) sharded step), 4 byte errors a
+    block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, msg_len = 64 * 36, 67
+    msg = torch.randint(0, 256, (n, msg_len), generator=gen, device=dev, dtype=torch.int32)
+    code = rs.encode(msg.to(torch.uint8))
+    code[:, 5:9] ^= 0x5A
+    out, t_ms = _timed(lambda: rs.decode(code, msg_len))
+    if not torch.equal(out, msg.to(torch.uint8)):
+        raise RuntimeError("Reed-Solomon decode did not return the message")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rs.decode(code, msg_len)
+        torch.cuda.synchronize()
+    evs = _device_events(prof)
+    return {"blocks": n, "block_bytes": msg_len + rs.NROOTS, "decode_ms": t_ms,
+            "device_kernel_launches": int(sum(e.count for e in evs)),
+            "device_busy_ms": sum(e.device_time_total for e in evs) / 1e3}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sharded", action="store_true",
+                    help="also profile the time-sharded receiver and one Reed-Solomon decode")
     ap.add_argument("--out", type=Path, default=None, help="directory for profile_step.json")
     args = ap.parse_args()
     dev = resolve_device(None)
@@ -96,10 +148,12 @@ def main() -> None:
         capture_output=True, text=True, timeout=60).stdout.strip()
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    report = {"card": card, "torch": torch.__version__, "configs": [
-        profile_config(FrameConfig(1, 0, 0, 64), 20.0, dev, gen),
-        profile_config(FrameConfig(1, 1, 1, 64), 10.0, dev, gen),
-    ]}
+    cases = ((FrameConfig(1, 0, 0, 64), 20.0), (FrameConfig(1, 1, 1, 64), 10.0))
+    report = {"card": card, "torch": torch.__version__,
+              "configs": [profile_config(c, snr, dev, gen) for c, snr in cases]}
+    if args.sharded:
+        report["sharded"] = [profile_config(c, snr, dev, gen, sharded=True) for c, snr in cases]
+        report["rs_decode"] = rs_decode_launches(dev, gen)
     print(json.dumps(report, indent=1))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)

@@ -28,9 +28,8 @@ def tiled_stream(
         0, 256, (batch, cfg.payload_len), generator=gen, device=dev, dtype=torch.int32
     ).to(torch.uint8)
     frames = framegen.framegen(payloads, cfg, device=dev)
-    f = frames.shape[1]
-    gap = int(0.8 * f)
-    period = 37 + f + gap
+    f, period = frames.shape[1], _period(cfg)
+    gap = period - 37 - f
     n_frames = sum(1 for i in range(block // period + 1) if 37 + i * period + f <= block)
     zeros = lambda n: torch.zeros((batch, n), dtype=torch.complex64, device=dev)
     pattern = torch.cat([zeros(37), frames, zeros(gap)], dim=1)
@@ -42,3 +41,60 @@ def tiled_stream(
     )
     x = (x + sigma * noise).to(torch.complex64).contiguous()
     return x, payloads, n_frames, block // period + 2
+
+
+def _period(cfg: FrameConfig) -> int:
+    """Samples from one frame start to the next in both tilings."""
+    f = framegen.frame_length(cfg)
+    return 37 + f + int(0.8 * f)
+
+
+def shard_slots(cfg: FrameConfig, t_local: int) -> int:
+    """Slots a time shard of ``t_local`` samples needs for a ``long_stream``:
+    every frame that starts in the shard's window of t_local + frame_samples
+    - 1 samples, and two to spare."""
+    return (t_local + framegen.frame_length(cfg) - 1) // _period(cfg) + 2
+
+
+def long_stream(
+    cfg: FrameConfig,
+    snr_db: float,
+    batch: int,
+    total: int,
+    gen: torch.Generator,
+    device: torch.device | str | None = None,
+):
+    """A few long channels for the time-sharded receiver: per row the same
+    [lead-in | frame | 0.8 f gap] tiling as ``tiled_stream`` to ``total``
+    samples plus AWGN at ``snr_db``, but with a DIFFERENT random payload for
+    every frame, so that a frame decoded twice or in the wrong place shows.
+    Row b's lead-in is 37 + b * period / batch samples: the channels are not
+    aligned with each other, so whatever the shard length, frames of some
+    rows straddle the shard boundaries.
+
+    Returns (x [batch, total] complex64, payloads [batch, n_slots,
+    payload_len] uint8, starts [batch, n_slots] int64: the true start of
+    every frame, whole [batch, n_slots] bool: the frame lies wholly inside
+    the stream). A frame cut by the end of the stream is in ``x`` as far as
+    it fits and is not ``whole``."""
+    dev = resolve_device(device)
+    f, period = framegen.frame_length(cfg), _period(cfg)
+    n_slots = -(-total // period)
+    payloads = torch.randint(
+        0, 256, (batch, n_slots, cfg.payload_len), generator=gen, device=dev, dtype=torch.int32
+    ).to(torch.uint8)
+    frames = framegen.framegen(payloads.reshape(batch * n_slots, -1), cfg, device=dev)
+    slots = torch.zeros((batch, n_slots, period), dtype=torch.complex64, device=dev)
+    slots[:, :, :f] = frames.reshape(batch, n_slots, f)
+    lead = 37 + (torch.arange(batch, device=dev) * period) // batch  # [batch]
+    idx = torch.arange(total, device=dev)[None, :] - lead[:, None]
+    x = torch.gather(slots.reshape(batch, n_slots * period), 1, idx.clamp(min=0))
+    x = torch.where(idx >= 0, x, torch.zeros_like(x))
+    sigma = torch.sqrt(torch.mean(torch.abs(frames) ** 2) / (2 * 10 ** (snr_db / 10)))
+    noise = torch.complex(
+        torch.randn((batch, total), generator=gen, device=dev),
+        torch.randn((batch, total), generator=gen, device=dev),
+    )
+    x = (x + sigma * noise).to(torch.complex64).contiguous()
+    starts = lead[:, None] + period * torch.arange(n_slots, device=dev)[None, :]
+    return x, payloads, starts, starts + f <= total

@@ -19,6 +19,11 @@ import liquiddsp_tpu_torch.phy.framegen, liquiddsp_tpu_torch.phy.framesync
 import liquiddsp_tpu_torch.phy.detector, liquiddsp_tpu_torch.phy.tables
 import liquiddsp_tpu_torch.kernels.correlator, liquiddsp_tpu_torch.kernels.extract
 import liquiddsp_tpu_torch.kernels.recover, liquiddsp_tpu_torch.kernels.viterbi
+import liquiddsp_tpu_torch.kernels.halo, liquiddsp_tpu_torch.parallel.mesh
+import liquiddsp_tpu_torch.parallel.halo, liquiddsp_tpu_torch.utils.metrics
+import liquiddsp_tpu_torch.runtime.distributed_stream, liquiddsp_tpu_torch.ops.fec.rs
+import liquiddsp_tpu_torch.ops.fec.block, liquiddsp_tpu_torch.ops.modem
+import liquiddsp_tpu_torch.streams, liquiddsp_tpu_torch.dryrun
 import liquiddsp_tpu_torch.profile_step
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "liquiddsp_tpu" or m.startswith("liquiddsp_tpu.")]
@@ -47,12 +52,15 @@ def _no_gpu():
         pytest.skip("this machine has a GPU: device=None is allowed to run")
 
 
-@pytest.mark.parametrize("entry", ["framegen", "detect", "framesync_fixed", "phy_tables"])
+@pytest.mark.parametrize("entry", ["framegen", "detect", "framesync_fixed", "phy_tables",
+                                   "make_mesh", "long_stream", "dryrun_sharded"])
 def test_entry_points_raise_without_gpu(entry):
     """device=None means the GPU; without one the call raises instead of
     running on the CPU."""
     _no_gpu()
-    from liquiddsp_tpu_torch import FrameConfig
+    import liquiddsp_tpu_torch
+    from liquiddsp_tpu_torch import FrameConfig, streams
+    from liquiddsp_tpu_torch.parallel import mesh
     from liquiddsp_tpu_torch.phy import detector, framegen, framesync, tables
 
     cfg = FrameConfig(1, 0, 0, 64)
@@ -62,6 +70,9 @@ def test_entry_points_raise_without_gpu(entry):
         "detect": lambda: detector.detect(x, 2),
         "framesync_fixed": lambda: framesync.framesync_fixed(x, cfg, 2),
         "phy_tables": lambda: tables.phy_tables(cfg),
+        "make_mesh": lambda: mesh.make_mesh(n_time=4),
+        "long_stream": lambda: streams.long_stream(cfg, 20.0, 1, 4096, torch.Generator()),
+        "dryrun_sharded": lambda: liquiddsp_tpu_torch.dryrun_sharded(2),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -76,17 +87,48 @@ def test_chip_smoke_fails_without_gpu():
     assert '"ok"' not in out.stdout
 
 
+def test_sharded_receiver_raises_on_a_gpu_mesh_without_gpu_and_runs_on_cpu():
+    """A mesh of CUDA devices means the GPU: without one the sharded receiver
+    and its streaming wrapper raise instead of running on the CPU, while a
+    mesh built with devices=["cpu"] runs."""
+    _no_gpu()
+    from liquiddsp_tpu_torch import FrameConfig
+    from liquiddsp_tpu_torch.parallel.halo import shard_stream, sharded_framesync
+    from liquiddsp_tpu_torch.parallel.mesh import make_mesh
+    from liquiddsp_tpu_torch.runtime.distributed_stream import ShardedStreamingRx
+
+    cfg = FrameConfig(1, 0, 0, 64)
+    x = torch.zeros((1, 4096), dtype=torch.complex64)
+    gpu = make_mesh(n_time=2, n_ch=1, devices=["cuda:0"])
+    for call in (lambda: sharded_framesync(x, cfg, gpu), lambda: shard_stream(x, gpu),
+                 lambda: ShardedStreamingRx(cfg, gpu, batch=1, chunk_len=8192)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    res = sharded_framesync(x, cfg, make_mesh(n_time=2, n_ch=1, devices=["cpu"]), 2)
+    assert res.mask.shape == (1, 4) and not bool(res.mask.any())
+
+
 def test_unported_paths_raise_not_implemented():
+    """What still waits raises: the sample-clock-drift path for frames of 2200
+    symbols and more, and a mesh over several devices. What this package has
+    ported since no longer does: the differential modems, Reed-Solomon, the
+    Hamming and SEC-DED codes."""
     from liquiddsp_tpu_torch import FrameConfig
     from liquiddsp_tpu_torch.ops import modem
     from liquiddsp_tpu_torch.ops.fec import registry
-    from liquiddsp_tpu_torch.phy import framegen
+    from liquiddsp_tpu_torch.parallel.mesh import make_mesh
+    from liquiddsp_tpu_torch.phy import framegen, framesync
 
-    with pytest.raises(NotImplementedError):
-        modem.modulate(torch.zeros(4, dtype=torch.int32), 4)  # DPSK2
-    with pytest.raises(NotImplementedError):
-        registry.outer_encode(torch.zeros((1, 8), dtype=torch.uint8), 2)  # RS
-    with pytest.raises(NotImplementedError):
-        registry.outer_decode(torch.zeros((1, 14), dtype=torch.int8), 1, 3)  # Hamming(7,4)
-    with pytest.raises(NotImplementedError):
-        framegen.framegen(np.zeros((1, 64), np.uint8), FrameConfig(4, 0, 0, 64), device="cpu")
+    long_cfg = FrameConfig(0, 1, 1, 64)  # BPSK + V27 + Golay: 2416 symbols
+    x = torch.zeros((1, 8192), dtype=torch.complex64)
+    with pytest.raises(NotImplementedError, match="sample-clock-drift"):
+        framesync.framesync_fixed(x, long_cfg, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.4"):
+        make_mesh(devices=["cpu", "meta"])
+
+    assert modem.modulate(torch.zeros(4, dtype=torch.int32), 4).shape == (4,)  # DPSK2
+    coded = registry.outer_encode(torch.zeros((1, 8), dtype=torch.uint8), 2)  # RS
+    assert registry.outer_decode(coded, 8, 2).shape == (1, 8)
+    assert registry.outer_decode(torch.zeros((1, 14), dtype=torch.int8), 1, 3).shape == (1, 1)
+    frames = framegen.framegen(np.zeros((1, 64), np.uint8), FrameConfig(4, 0, 0, 64), device="cpu")
+    assert frames.shape == (1, framegen.frame_length(FrameConfig(4, 0, 0, 64)))

@@ -20,6 +20,7 @@ from liquiddsp_tpu.phy import framesync as jsync
 from liquiddsp_tpu_torch.kernels import _cuda
 from liquiddsp_tpu_torch.kernels import correlator as tcorr
 from liquiddsp_tpu_torch.kernels import extract as textract
+from liquiddsp_tpu_torch.kernels import halo as thalo
 from liquiddsp_tpu_torch.kernels import recover as trecover
 from liquiddsp_tpu_torch.kernels import viterbi as tviterbi
 from liquiddsp_tpu_torch.ops.fec import conv as tconv
@@ -211,8 +212,9 @@ def test_wrappers_refuse_wrong_tensors_and_count_no_cpu_launch():
     x = torch.zeros((1, 256), dtype=torch.complex64)
     tcorr.correlate_reduced(x, jdet.templates_time())
     textract.extract_windows(x, torch.zeros((1, 1), dtype=torch.int32), 16)
+    thalo.halo_windows(x, 2, 16)
     assert _cuda.LAUNCHES == before  # the plain versions are not launches
     with pytest.raises(ValueError):
         _cuda.check_cuda("x", x, torch.complex64, (1, 256))  # a CPU tensor
-    assert set(_cuda.LAUNCHES) == {"correlator", "extract", "recover", "viterbi"}
+    assert set(_cuda.LAUNCHES) == {"correlator", "extract", "recover", "viterbi", "halo"}
     assert set(_cuda.SOURCES) == {p.name for p in _cuda.CSRC.glob("*.cu")}

@@ -22,6 +22,7 @@ from liquiddsp_tpu_torch.ops import modem as tmodem
 from liquiddsp_tpu_torch.ops.fec import block as tblock
 from liquiddsp_tpu_torch.ops.fec import conv as tconv
 from liquiddsp_tpu_torch.ops.fec import registry as treg
+from liquiddsp_tpu_torch.ops.fec import rs as trs
 from liquiddsp_tpu_torch.phy import frame_spec as tfs
 from liquiddsp_tpu_torch.phy import tables as ttables
 
@@ -128,7 +129,8 @@ def test_code_lengths_equal(inner):
             assert jreg.outer_encoded_bits(msg_len, outer) == treg.outer_encoded_bits(
                 msg_len, outer), (msg_len, outer)
     for msg_len in (1, 223, 224, 446, 447):
-        assert jrs.block_sizes(msg_len) == treg.rs_block_sizes(msg_len)
-    for outer, (n, k) in treg.BLOCK_NK.items():
-        c = jreg._block_code(outer)
-        assert (c.n, c.k) == (n, k)
+        assert jrs.block_sizes(msg_len) == trs.block_sizes(msg_len)
+    for outer in (1, 3, 4, 5, 6, 7):
+        c, ct = jreg._block_code(outer), treg._block_code(outer)
+        assert (c.n, c.k) == (ct.n, ct.k)
+        np.testing.assert_array_equal(c.p, ct.p)
