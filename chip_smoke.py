@@ -4,7 +4,10 @@
 Run it from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
+
+With ``--kernels-only`` it stops after phase 3 and prints the kernels' line
+only: the quick check after a change to a kernel.
 
 Phases, each fatal on failure:
 
@@ -12,7 +15,11 @@ Phases, each fatal on failure:
 2. build: compiles liquiddsp_tpu_torch/csrc/*.cu with nvcc (set-up time).
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes that EVERY path below gives it (block, sharded, streaming
-   and config-class windows, with the candidates the detector finds there),
+   and config-class windows, with the candidates the detector finds there)
+   and at the edges of each kernel's design (Viterbi: one frame, a frame
+   count that fills no whole block, trellises shorter than and no multiple of
+   the layout's period, ties in every row; recover: odd symbol counts, odd
+   window lengths, one candidate, one symbol, one symbol more than a tile),
    then timed at the block and sharded shapes with CUDA events beside the
    plain version, the bound of the card and, where one PyTorch call computes
    the same function, that call (correlator: a complex torch.matmul on the
@@ -50,6 +57,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -72,6 +80,7 @@ from liquiddsp_tpu_torch.kernels.halo import halo_windows, halo_windows_ref
 from liquiddsp_tpu_torch.kernels.recover import (
     recover_symbols_planes,
     recover_symbols_planes_ref,
+    recover_tile,
 )
 from liquiddsp_tpu_torch.kernels.viterbi import viterbi, viterbi_ref
 from liquiddsp_tpu_torch.ops.fec import conv
@@ -259,12 +268,14 @@ def check_extract(x: torch.Tensor, cases) -> dict:
     return entry
 
 
-def compare_recover(x: torch.Tensor, starts: torch.Tensor, n_syms: int, gen: torch.Generator):
+def compare_recover(x: torch.Tensor, starts: torch.Tensor, n_syms: int, gen: torch.Generator,
+                    extra: int = 0):
     """The recover kernel against its plain version on the windows of ``x``
-    at ``starts`` with random carrier, gain and timing taps. Returns the
-    largest difference and the arguments."""
+    at ``starts`` (``extra`` samples longer than the symbols need) with random
+    carrier, gain and timing taps. Returns the largest difference and the
+    arguments."""
     b, k = starts.shape
-    n = fs.K_SAMP * n_syms + fs.PULSE_TAIL
+    n = fs.K_SAMP * n_syms + fs.PULSE_TAIL + extra
     bank = phy_tables(None, DEV).timing_bank30
     wr, wi = extract_windows(x, starts, n, return_planes=True)
     u = lambda lo, hi: torch.rand((b, k), generator=gen, device=DEV) * (hi - lo) + lo
@@ -282,7 +293,33 @@ def compare_recover(x: torch.Tensor, starts: torch.Tensor, n_syms: int, gen: tor
     return err, args
 
 
+# edges of the recover kernel's design: (rows, candidates a row, n_syms, extra
+# samples a window). Odd n_syms: rows on both 8-byte phases; an odd window
+# length: rows on all 4-byte phases; one candidate; one symbol; one symbol more
+# than the largest tile holds (two blocks, the last not a whole quad); the
+# longest frame (4426 samples)
+RECOVER_EDGES = ((3, 5, 513, 0), (4, 3, 1331, 0), (1, 1, 512, 0), (2, 3, 1, 0),
+                 (3, 2, 445, 1), (2, 2, 2199, 0))
+
+
+def recover_stamps(args) -> dict:
+    """Where a block's time goes, by the kernel's own clock64() stamps:
+    the derotation (loads, sincosf, phasor steps) against the filter."""
+    wr, n_syms = args[0], args[-1]
+    blocks = recover_tile(n_syms)[1]
+    stamps = torch.zeros((wr.shape[0] * wr.shape[1] * blocks, 3), dtype=torch.int64, device=DEV)
+    recover_symbols_planes(*args, stamps=stamps)
+    torch.cuda.synchronize()
+    d = (stamps[:, 1:] - stamps[:, :-1]).to(torch.float64).median(dim=0).values
+    return {"derotate_cycles_per_block": float(d[0]), "filter_cycles_per_block": float(d[1])}
+
+
 def check_recover(x: torch.Tensor, cases, gen: torch.Generator) -> dict:
+    edge_err = 0.0
+    for b, k, n_syms, extra in RECOVER_EDGES:
+        n = fs.K_SAMP * n_syms + fs.PULSE_TAIL + extra
+        starts = torch.randint(0, x.shape[1] - n, (b, k), generator=gen, device=DEV, dtype=torch.int32)
+        edge_err = max(edge_err, compare_recover(x[:b], starts, n_syms, gen, extra)[0])
     entry = None
     for starts, n_syms in cases:
         b, k = starts.shape
@@ -297,13 +334,17 @@ def check_recover(x: torch.Tensor, cases, gen: torch.Generator) -> dict:
             "plain_ms": time_ms(lambda: recover_symbols_planes_ref(*args), 5),
             "bound_ms": bms, "bound_by": by,
             "shapes": f"planes [{b}, {k}, {n}] f32 -> [{b}, {k}, {n_syms}] c64",
+            **recover_stamps(args),
         }
         if entry is None:
             entry = {
                 "name": "recover", "route": "cuda",
                 "source": "liquiddsp_tpu_torch/csrc/recover.cu",
                 "replaces": "liquiddsp_tpu/kernels/recover.py:115",
-                "max_abs_err": err, **t, "library_ms": None,
+                "max_abs_err": max(err, edge_err), **t, "library_ms": None,
+                "also_checked": [
+                    f"edge: planes [{b}, {k}, {fs.K_SAMP * ns + fs.PULSE_TAIL + extra}], {ns} syms"
+                    for b, k, ns, extra in RECOVER_EDGES],
             }
         else:
             entry["coded_config"] = t
@@ -311,7 +352,33 @@ def check_recover(x: torch.Tensor, cases, gen: torch.Generator) -> dict:
     return entry
 
 
+# edges of the Viterbi kernel's design: (frames, trellis steps). One frame;
+# a frame count that is no multiple of the warps a block holds; trellises
+# shorter than, and no multiple of, the layout's period of 5 steps, the
+# traceback's block of 30 and the 160 steps staged at a time
+VITERBI_EDGES = ((1, 1086), (961, 37), (3, 7), (961, 193), (2, 161))
+
+
+def viterbi_edge_lam(b: int, steps: int, gen: torch.Generator) -> torch.Tensor:
+    """lam [b, steps, 2] with ties in every row: rows in turn noisy with every
+    fifth value erased, hard decisions with every third erased, all erased."""
+    msg = torch.randint(0, 2, (b, steps - conv.NTAIL), generator=gen, device=DEV, dtype=torch.int32)
+    lam = 1.0 - 2.0 * conv.encode(msg.to(torch.int8), 1).to(torch.float32)
+    kind = (torch.arange(b, device=DEV) % 3)[:, None]
+    col = torch.arange(2 * steps, device=DEV)[None, :]
+    lam = lam + torch.where(kind == 0, 0.9, 0.0) * torch.randn(lam.shape, generator=gen, device=DEV)
+    erased = ((kind == 0) & (col % 5 == 0)) | ((kind == 1) & (col % 3 == 0)) | (kind == 2)
+    return torch.where(erased, 0.0, lam).reshape(b, steps, 2).contiguous()
+
+
 def check_viterbi(gen: torch.Generator) -> dict:
+    for eb, esteps in VITERBI_EDGES:
+        lam_e = viterbi_edge_lam(eb, esteps, gen)
+        got_e = viterbi(lam_e)
+        torch.cuda.synchronize()
+        n_diff = int((got_e != viterbi_ref(lam_e)).sum())
+        if n_diff != 0:
+            fail(f"viterbi differs from the plain version in {n_diff} bits at lam [{eb}, {esteps}, 2]")
     b, nbits = 64 * 15, 1080
     steps = nbits + conv.NTAIL
     msg = torch.randint(0, 2, (b, nbits), generator=gen, device=DEV, dtype=torch.int32)
@@ -330,7 +397,7 @@ def check_viterbi(gen: torch.Generator) -> dict:
     if not torch.equal(got[b // 2 : -16, :nbits].to(torch.int32), msg[b // 2 : -16]):
         fail("viterbi does not return the message on noiseless input")
     # a long punctured trellis (payload 256 + Golay + V27P78): erasures at
-    # every punctured slot, several chunks of the kernel's staging loop
+    # every punctured slot, 27 chunks of the kernel's staging loop
     nlong = 4160
     msg_l = torch.randint(0, 2, (32, nlong), generator=gen, device=DEV, dtype=torch.int32)
     llr_l = 1.0 - 2.0 * conv.encode(msg_l.to(torch.int8), 6).to(torch.float32)
@@ -347,15 +414,24 @@ def check_viterbi(gen: torch.Generator) -> dict:
     # of the dependent steps, far from this count.
     flops = b * steps * 64 * 8
     bms, by = bound(nbytes, flops)
+    # where a frame's time goes, by the kernel's own clock64() stamps
+    stamps = torch.zeros((b, 3), dtype=torch.int64, device=DEV)
+    viterbi(lam, stamps=stamps)
+    torch.cuda.synchronize()
+    cyc = (stamps[:, 1:] - stamps[:, :-1]).to(torch.float64).median(dim=0).values / steps
+    ms = time_ms(lambda: viterbi(lam), 10)
     return {
         "name": "viterbi", "route": "cuda",
         "source": "liquiddsp_tpu_torch/csrc/viterbi.cu",
         "replaces": "liquiddsp_tpu/kernels/viterbi.py:195",
         "max_abs_err": float(n_diff),
-        "ms": time_ms(lambda: viterbi(lam), 10),
+        "ms": ms, "ns_per_step": ms * 1e6 / steps,
+        "forward_cycles_per_step": float(cyc[0]), "traceback_cycles_per_step": float(cyc[1]),
         "plain_ms": time_ms(lambda: viterbi_ref(lam), 2, 1),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "shapes": f"lam [{b}, {steps}, 2] f32 -> bits [{b}, {steps}] i8",
+        "also_checked": [f"edge: lam [{eb}, {es}, 2]" for eb, es in VITERBI_EDGES]
+        + ["lam [32, 4166, 2], rate 7/8 punctured"],
     }
 
 
@@ -696,11 +772,17 @@ def main() -> None:
 
     t0 = time.perf_counter()
     _cuda.lib()
-    print(f"build: {len(_cuda.SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (set-up)")
+    print(f"build: {len(_cuda.SOURCES)} kernels in {time.perf_counter() - t0:.1f} s (set-up; "
+          f"a library built earlier from the same sources is reused with its compiler log)")
     for chunk in _cuda.build_log:
         for line in chunk.splitlines():
             if "registers" in line or "==" in line or "spill" in line:
                 print("  " + line.strip())
+        # the Viterbi kernel keeps its metrics, the recover kernel its taps and
+        # samples, in registers: neither may spill
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", chunk)]
+        if chunk.startswith(("== viterbi.cu", "== recover.cu")) and (not spills or any(spills)):
+            fail(f"register spills in {chunk.splitlines()[0]}: {spills}")
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
@@ -751,6 +833,10 @@ def main() -> None:
                           cfg, shard_slots(cfg, CL_SH_TOTAL // CL_SH_NTIME), gen)
     print(f"kernels: all five agree with their plain versions at the shapes of every path "
           f"({time.perf_counter() - t_start:.0f} s)")
+    if "--kernels-only" in sys.argv[1:]:
+        print(f"device: {card}")
+        print(json.dumps({"kernels": kernels}))
+        return
 
     # each path's step carries its own counts (``counted``). One
     # block-receiver step launches the correlator, extract and recover once

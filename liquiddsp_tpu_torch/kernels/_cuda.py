@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -42,16 +43,16 @@ _ARGTYPES = {
     "lq_correlate_reduced": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
     # x, starts, wr, wi, B, T, K, n, stream
     "lq_extract_windows": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
-    # wr, wi, dphi, phi, gamma, taps, y, B*K, n, n_syms, stream
-    "lq_recover_symbols": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
-    # lam, signs, dec, bits, B, steps, stream
-    "lq_viterbi": [_vp, _vp, _vp, _vp, _i, _i, _vp],
+    # wr, wi, dphi, phi, gamma, taps, y, stamps or NULL, B*K, n, n_syms, tile, stream
+    "lq_recover_symbols": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # lam, warp signs, dec, bits, stamps or NULL, B, steps, dec row stride, stream
+    "lq_viterbi": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # x, windows, left neighbours' windows, B, n_time, T_local, ov, row stride, stream
     "lq_halo_windows": [_vp, _vp, _vp, _i, _i, _i, _i, _ll, _vp],
 }
 
 _lib: ctypes.CDLL | None = None
-build_log: list[str] = []  # compiler output of the last build, one entry per source
+build_log: list[str] = []  # compiler output of the library's build, one entry per source
 
 
 def reset_launches() -> None:
@@ -59,12 +60,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    exe = shutil.which("nvcc")
+def toolkit_exe(name: str) -> str:
+    """Path of a program of the CUDA toolkit (``nvcc``, ``cuobjdump``)."""
+    exe = shutil.which(name)
     if exe is None:
-        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
         if not cand.exists():
-            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+            raise RuntimeError(f"{name} not found: the CUDA kernels cannot be built")
         exe = str(cand)
     return exe
 
@@ -73,15 +75,19 @@ def build() -> Path:
     """Compile ``csrc/*.cu`` into ``_build/libliquiddsp_kernels_<hash>.so``
     and return its path. A library whose name carries the hash of the current
     sources is reused. The compiler's output (registers, shared memory and
-    spills of each kernel) is kept in ``build_log``."""
+    spills of each kernel) is kept in ``build_log`` and in a ``.log`` file
+    beside the library, from which a later process that reuses the library
+    fills ``build_log``."""
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
     lib_path = BUILD_DIR / f"libliquiddsp_kernels_{h.hexdigest()[:16]}.so"
-    if lib_path.exists():
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists() and log_path.exists():
+        build_log[:] = json.loads(log_path.read_text())
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = toolkit_exe("nvcc")
     procs = []
     for name in SOURCES:
         obj = BUILD_DIR / (name + ".o")
@@ -105,6 +111,7 @@ def build() -> Path:
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    log_path.write_text(json.dumps(build_log))  # before the library: whoever finds the one finds the other
     os.replace(tmp, lib_path)
     return lib_path
 

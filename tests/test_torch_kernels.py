@@ -218,3 +218,35 @@ def test_wrappers_refuse_wrong_tensors_and_count_no_cpu_launch():
         _cuda.check_cuda("x", x, torch.complex64, (1, 256))  # a CPU tensor
     assert set(_cuda.LAUNCHES) == {"correlator", "extract", "recover", "viterbi", "halo"}
     assert set(_cuda.SOURCES) == {p.name for p in _cuda.CSRC.glob("*.cu")}
+
+
+def test_c_interfaces_match_their_sources():
+    """Every C entry point of ``_ARGTYPES`` is defined in a source with as many
+    parameters as the wrapper passes, the stream last."""
+    import re
+    text = "".join((_cuda.CSRC / name).read_text() for name in _cuda.SOURCES)
+    for fn, argtypes in _cuda._ARGTYPES.items():
+        m = re.search(r'extern "C" int %s\(([^)]*)\)' % fn, text)
+        assert m is not None, fn
+        params = [p.strip() for p in m.group(1).split(",")]
+        assert len(params) == len(argtypes), (fn, params)
+        assert params[-1] == "void* stream"
+        for p, a in zip(params, argtypes):
+            is_pointer = "*" in p
+            assert is_pointer == (a is _cuda._vp), (fn, p)
+
+
+def test_viterbi_and_recover_scratch_follow_the_designs():
+    """The wrappers hand the kernels what the designs' index functions say:
+    a decision row of whole 5-step periods, the per-lane sign table, the
+    recover tile; on the CPU they take the plain versions and count nothing."""
+    before = dict(_cuda.LAUNCHES)
+    lam = torch.zeros((2, 13, 2))
+    assert tviterbi.viterbi(lam).shape == (2, 13)
+    assert tviterbi.warp_signs().shape == (tviterbi.PHASES, tviterbi.LANES, 8)
+    z = torch.zeros((1, 2, 38))
+    s = torch.ones((1, 2))
+    y = trecover.recover_symbols_planes(z, z, s, s, s, torch.zeros((1, 2, 30)), 5)
+    assert y.shape == (1, 2, 5) and y.dtype == torch.complex64
+    assert trecover.recover_tile(5) == (8, 1)
+    assert _cuda.LAUNCHES == before
