@@ -44,11 +44,34 @@ Phases, each fatal on failure:
    2 x 131,072 in 4 shards, each held against the payloads sent and against
    a CPU run through the plain versions; launches of each step demanded
    exactly.
+8. (P1) config space at payload 32: all 616 configs, 2 frames each, up to 8
+   configs a block, through config_space_loopback and FlexRx (the static
+   path, kernels 1-4), on the samples of the reference's recorded run
+   (bench/CONFIG_SPACE.json: seed 0 in 8 shards, so 80 blocks): 616/616
+   decode bit-exactly against what was sent.
+9. (P2) long frames at payload 256: the 56 BPSK configs, 2 frames each, on
+   the sample-clock-drift (SFO) path with an 8560-symbol buffer and
+   trellises of about 4,160 steps, on the samples of
+   bench/CONFIG_SPACE_LONG.json's run (4 shards): 56/56.
+10. (P3) SFO at full width: 64 x 65,536 samples of QAM16 frames of 2650
+   symbols at 28 dB, rows stretched by +50 and -50 ppm in turn, through
+   framesync_fixed with track_sfo="auto" (at least 99 % decode) and False
+   (strictly fewer), both without the payload carrier tracker (track=False:
+   it slips on some QAM16 payloads whatever the symbol recovery did).
+11. (P4) the self-describing receiver at full width: 64 channels x 65,536
+   samples, a different config on each channel (drawn from the 490 outside
+   the reference-defect class, covering every modulation, inner and outer
+   code), 12 frames a channel at payload 64, through FlexRx at
+   max_payload_len 64 (the SFO path for every frame) and again with
+   expected_configs: the same infos, at least 99 % of the 768 frames, no
+   false CRC pass, two channels equal to a CPU run, step time.
 
 Every step of every path is driven with the kernels' launch counters set to 0
 just before and read just after, and fails unless each kernel of that path
-was launched exactly once (the Viterbi kernel only where the config has the
-inner code, the halo kernel only in the sharded receivers).
+was launched exactly as often as the path demands: once a block for the
+correlator and extract, once a block on the static path for recover (never
+on the SFO path), once a config group with an inner code for the Viterbi
+kernel (the speculative groups of P4 counted), once a sharded step for halo.
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -70,6 +93,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from liquiddsp_tpu_torch import FrameConfig
+from liquiddsp_tpu_torch import config_space as cs
 from liquiddsp_tpu_torch.kernels import _cuda
 from liquiddsp_tpu_torch.kernels.correlator import (
     correlate_reduced,
@@ -83,15 +107,16 @@ from liquiddsp_tpu_torch.kernels.recover import (
     recover_tile,
 )
 from liquiddsp_tpu_torch.kernels.viterbi import viterbi, viterbi_ref
-from liquiddsp_tpu_torch.ops.fec import conv
+from liquiddsp_tpu_torch.ops.fec import conv, registry
 from liquiddsp_tpu_torch.parallel.halo import sharded_framesync
 from liquiddsp_tpu_torch.parallel.mesh import make_mesh
 from liquiddsp_tpu_torch.phy import detector
 from liquiddsp_tpu_torch.phy import frame_spec as fs
-from liquiddsp_tpu_torch.phy.framesync import framesync_fixed
+from liquiddsp_tpu_torch.phy.framesync import SFO_AUTO_SYMS, framesync_fixed
 from liquiddsp_tpu_torch.phy.tables import phy_tables
+from liquiddsp_tpu_torch.runtime.blocks import FlexRx
 from liquiddsp_tpu_torch.runtime.distributed_stream import ShardedStreamingRx
-from liquiddsp_tpu_torch.streams import long_stream, shard_slots, tiled_stream
+from liquiddsp_tpu_torch.streams import long_stream, shard_slots, stretched_stream, tiled_stream
 from liquiddsp_tpu_torch.utils.metrics import LinkMetrics
 
 BATCH, BLOCK = 64, 65536
@@ -104,6 +129,12 @@ SH_BATCH, SH_TOTAL, SH_NTIME = 8, 524288, 8
 # config classes beyond QPSK, at a smaller depth: (config, SNR dB)
 CLASS_CONFIGS = ((FrameConfig(5, 0, 0, 64), 30.0), (FrameConfig(10, 0, 2, 64), 30.0))
 CL_BATCH, CL_SH_BATCH, CL_SH_TOTAL, CL_SH_NTIME = 8, 2, 131072, 4
+# P1-P2: the config-space sweeps (payload, modulations, blocks)
+P1_PAYLOAD, P2_PAYLOAD = 32, 256
+# P3: long QAM16 frames stretched by +-50 ppm
+P3_CFG, P3_SNR, P3_PPM = FrameConfig(8, 0, 0, 1200), 28.0, 50.0
+# P4: one config a channel at payload 64 (12 frames a channel)
+P4_PAYLOAD, P4_SEED = 64, 7
 # published peaks of one H100 SXM at its full power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -242,17 +273,27 @@ def compare_extract(x: torch.Tensor, starts: torch.Tensor, n: int) -> float:
     return err
 
 
+def extract_library(x: torch.Tensor, starts: torch.Tensor, n: int):
+    """The same windows as one PyTorch gather: every length-n window of the
+    zero-padded row, indexed at the starts."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return torch.nn.functional.pad(x, (n, n)).unfold(-1, n, 1)[rows, starts.to(torch.int64) + n]
+
+
 def check_extract(x: torch.Tensor, cases) -> dict:
     entry = None
     for starts, n in cases:
         err = compare_extract(x, starts, n)
         b, k = starts.shape
+        if not torch.equal(extract_library(x, starts, n), extract_windows(x, starts, n)):
+            fail("library yardstick does not compute the extract kernel's function")
         # the function must read each window sample and write it once
         bms, by = bound(b * k * 4 + 2 * b * k * n * 8, 0)
         t = {
             "ms": time_ms(lambda: extract_windows(x, starts, n, return_planes=True), 10),
             "plain_ms": time_ms(lambda: extract_windows_ref(x, starts, n), 5),
             "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lambda: extract_library(x, starts, n), 5),
             "shapes": f"x [{x.shape[0]}, {x.shape[1]}] c64, starts [{b}, {k}], n={n}",
         }
         if entry is None:
@@ -260,7 +301,7 @@ def check_extract(x: torch.Tensor, cases) -> dict:
                 "name": "extract", "route": "cuda",
                 "source": "liquiddsp_tpu_torch/csrc/extract.cu",
                 "replaces": "liquiddsp_tpu/kernels/extract.py:96",
-                "max_abs_err": err, **t, "library_ms": None,
+                "max_abs_err": err, **t,
             }
         else:
             entry["coded_config"] = t
@@ -484,24 +525,62 @@ def check_halo(x: torch.Tensor, n_time: int, ovs, also, gen: torch.Generator) ->
     return entry
 
 
-def check_path_shapes(kernels, label, x, cfg, k: int, gen: torch.Generator) -> None:
+def check_path_shapes(kernels, label, x, n_syms: int, k: int, gen: torch.Generator,
+                      recover: bool = True) -> None:
     """Kernels 1-3 against their plain versions at the shapes one more path
-    gives them: ``x`` is the [rows, samples] tensor that path's local receiver
-    sees, the candidates are the ``k`` a row that the detector finds there.
-    Not timed. The Viterbi kernel sees lam [960, 1086, 2] in every path that
-    runs it (64 rows x 15 slots, block and sharded alike), which
-    ``check_viterbi`` holds."""
-    spec = fs.FrameSpec(cfg)
+    gives them: ``x`` is the [rows, samples] tensor that path's receiver
+    sees, the candidates are the ``k`` a row that the detector finds there,
+    the windows those of an ``n_syms`` symbol buffer. ``recover=False`` for
+    the sample-clock-drift path, which reads complex windows and does not run
+    the recover kernel. Not timed."""
+    n = fs.K_SAMP * n_syms + fs.PULSE_TAIL
     errs = {"correlator": compare_correlator(x)[0]}
     starts = detector.detect(x, k, fine=False).start
-    errs["extract"] = compare_extract(x, starts, spec.frame_samples)
-    errs["recover"] = compare_recover(x, starts, spec.frame_syms, gen)[0]
+    errs["extract"] = compare_extract(x, starts, n)
+    if recover:
+        errs["recover"] = compare_recover(x, starts, n_syms, gen)[0]
     for entry in kernels:
         if entry["name"] in errs:
             entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
             entry.setdefault("also_checked", []).append(
                 f"{label}: x [{x.shape[0]}, {x.shape[1]}], {k} slots a row, "
-                f"n={spec.frame_samples}, {spec.frame_syms} syms")
+                f"n={n}" + (f", {n_syms} syms" if recover else ""))
+
+
+def receiver_lam(frames: int, payload_len: int, inner: int, outer: int,
+                 gen: torch.Generator) -> torch.Tensor:
+    """lam [frames, steps, 2] as decode_payload_symbols hands it to the Viterbi
+    kernel for a config: the coded bits of random messages of that payload's
+    outer-coded length, punctured by the inner code, with noise, then
+    depunctured (zeros at the punctured slots)."""
+    nbits = registry.outer_encoded_bits(payload_len + 3, outer)
+    msg = torch.randint(0, 2, (frames, nbits), generator=gen, device=DEV, dtype=torch.int32)
+    llr = 1.0 - 2.0 * conv.encode(msg.to(torch.int8), inner).to(torch.float32)
+    llr += 0.5 * torch.randn(llr.shape, generator=gen, device=DEV)
+    steps = nbits + conv.NTAIL
+    full = torch.zeros((frames, 2 * steps), device=DEV)
+    full.index_copy_(1, conv._keep_idx(steps, inner, DEV), llr)
+    return full.reshape(frames, steps, 2)
+
+
+def check_viterbi_shapes(kernels, label, frames: int, payload_len: int, gen) -> None:
+    """The Viterbi kernel against its plain version (bit-exact) at the
+    trellises a receiver path gives it: every outer code's message length at
+    this payload, each with another of the six inner codes' punctures."""
+    shapes = []
+    for outer in range(8):
+        inner = 1 + outer % 6
+        lam = receiver_lam(frames, payload_len, inner, outer, gen)
+        got = viterbi(lam)
+        torch.cuda.synchronize()
+        n_diff = int((got != viterbi_ref(lam)).sum())
+        if n_diff:
+            fail(f"viterbi differs from the plain version in {n_diff} bits at {label} "
+                 f"lam {list(lam.shape)} (inner {inner}, outer {outer})")
+        shapes.append(lam.shape[1])
+    entry = next(e for e in kernels if e["name"] == "viterbi")
+    entry.setdefault("also_checked", []).append(
+        f"{label}: lam [{frames}, steps, 2], steps {sorted(set(shapes))}, every puncture")
 
 
 # ---------------------------------------------------------------------------
@@ -576,17 +655,22 @@ def check_against_cpu(x, res, cfg, max_frames: int) -> None:
                  by_start(res, slice(0, 2)))
 
 
-def counted(what: str, cfg, halo: int, step):
+def block_launches(cfg, halo: int) -> dict:
+    """What one step of framesync_fixed (``halo`` 0) or sharded_framesync
+    (``halo`` 1) launches for frames of ``cfg`` on the static path."""
+    return {"correlator": 1, "extract": 1, "recover": 1,
+            "viterbi": 1 if cfg.inner_code else 0, "halo": halo}
+
+
+def counted(what: str, want: dict, step):
     """Drive one step of a path with the kernels' launch counters set to 0
-    just before and read just after; fail unless each kernel of that path was
-    launched exactly once. Returns (the step's result, the counts)."""
+    just before and read just after; fail unless each kernel was launched
+    exactly as ``want`` says. Returns (the step's result, the counts)."""
     torch.cuda.synchronize()
     _cuda.reset_launches()
     res = step()
     torch.cuda.synchronize()
     got = dict(_cuda.LAUNCHES)
-    want = {"correlator": 1, "extract": 1, "recover": 1,
-            "viterbi": 1 if cfg.inner_code else 0, "halo": halo}
     if got != want:
         fail(f"{what} launched {got}, expected {want}")
     return res, got
@@ -654,7 +738,8 @@ def sharded_step(cfg, snr, share, stream, card) -> dict:
     t_local = SH_TOTAL // SH_NTIME
     ov = fs.FrameSpec(cfg).frame_samples - 1
     k = shard_slots(cfg, t_local)
-    res, got = counted(what, cfg, 1, lambda: sharded_framesync(x, cfg, mesh, max_frames_per_shard=k))
+    res, got = counted(what, block_launches(cfg, 1),
+                       lambda: sharded_framesync(x, cfg, mesh, max_frames_per_shard=k))
     if res.mask.shape != (SH_BATCH, SH_NTIME * k):
         fail(f"{what}: slots have shape {tuple(res.mask.shape)}")
     n_ok, expected, n_cross = check_stream_frames(
@@ -704,7 +789,8 @@ def streaming_run(cfg, snr, stream, card) -> dict:
     valid, start, payload, detected = [], [], [], 0
     for c in range(n_chunks):
         chunk = x[:, c * SH_TOTAL : (c + 1) * SH_TOTAL]
-        (res, metrics), got = counted(f"{what}, step {c}", cfg, 1, lambda: rx.step(chunk))
+        (res, metrics), got = counted(f"{what}, step {c}", block_launches(cfg, 1),
+                                      lambda: rx.step(chunk))
         valid.append(res.payload_valid)
         start.append(res.start.to(torch.int64) + res.epoch)
         payload.append(res.payload)
@@ -735,7 +821,8 @@ def config_class_run(cfg, snr, block_stream, sh_stream, card) -> tuple[dict, dic
     name = config_name(cfg)
     x, payloads, n_frames, max_frames = block_stream
     res, got_block = counted(
-        f"config class {name}, block", cfg, 0, lambda: framesync_fixed(x, cfg, max_frames))
+        f"config class {name}, block", block_launches(cfg, 0),
+        lambda: framesync_fixed(x, cfg, max_frames))
     n_ok, expected = check_frames(res, payloads, n_frames, 1.0, cfg)
     check_against_cpu(x, res, cfg, max_frames)
     print(
@@ -749,7 +836,7 @@ def config_class_run(cfg, snr, block_stream, sh_stream, card) -> tuple[dict, dic
     k = shard_slots(cfg, t_local)
     mesh = make_mesh(n_time=CL_SH_NTIME, n_ch=1, devices=[DEV])
     res, got_sharded = counted(
-        what, cfg, 1, lambda: sharded_framesync(x, cfg, mesh, max_frames_per_shard=k))
+        what, block_launches(cfg, 1), lambda: sharded_framesync(x, cfg, mesh, max_frames_per_shard=k))
     n_ok, expected, n_cross = check_stream_frames(
         what, res.payload_valid, res.start, res.payload, payloads, starts, whole,
         1.0, t_local, ov)
@@ -762,6 +849,141 @@ def config_class_run(cfg, snr, block_stream, sh_stream, card) -> tuple[dict, dic
         f"frames exactly once and bit-exact, {n_cross} across a shard boundary, CPU run agrees [{card}]"
     )
     return got_block, got_sharded
+
+
+# ---------------------------------------------------------------------------
+# phases P1-P4: the self-describing receiver and the sample-clock-drift path
+# ---------------------------------------------------------------------------
+
+ALL_CONFIGS = [(m, i, o) for m in range(11) for i in range(7) for o in range(8)]
+
+
+def sweep_run(label: str, payload_len: int, mods, shards: int, card: str) -> dict:
+    """P1 / P2: config_space_loopback over the configs of ``mods`` (all when
+    None), on the samples of the reference's run in ``shards`` parts, counted
+    as one step; every config must decode. Each block launches the correlator
+    and extract once, recover once where the buffer is on the static path,
+    and the Viterbi kernel once a config with an inner code (each config of a
+    block is its own header group)."""
+    configs = [c for c in ALL_CONFIGS if mods is None or c[0] in mods]
+    per = -(-len(configs) // shards)
+    blocks = sum(-(-len(configs[s : s + per]) // 8) for s in range(0, len(configs), per))
+    n_syms = fs.max_frame_spec(payload_len).frame_syms
+    static = n_syms < SFO_AUTO_SYMS
+    want = {"correlator": blocks, "extract": blocks, "recover": blocks if static else 0,
+            "viterbi": sum(1 for c in configs if c[1]), "halo": 0}
+    t0 = time.perf_counter()
+    res, got = counted(label, want, lambda: cs.config_space_loopback(
+        payload_len=payload_len, mods=mods, shards=shards, device=DEV))
+    secs = time.perf_counter() - t0
+    if len(res) != len(configs):
+        fail(f"{label}: {len(res)} results for {len(configs)} configs")
+    bad = sorted(k for k, v in res.items() if not v)
+    if bad:
+        fail(f"{label}: configs that did not decode every frame exactly once: {bad}")
+    print(f"{label}: {len(res)}/{len(res)} configs decode every frame bit-exactly against what "
+          f"was sent ({'static' if static else 'SFO'} path, buffer {n_syms} symbols, {blocks} "
+          f"blocks of up to 8 configs x 2 frames, the samples of the reference's run in "
+          f"{shards} shards); {secs:.1f} s [{card}]")
+    return got
+
+
+def sfo_run(stream, card: str) -> dict:
+    """P3: the stretched stream through framesync_fixed with and without
+    sample-clock-drift tracking. Returns the launch counts of both steps."""
+    x, payloads, n_frames, max_frames = stream
+    expected = n_frames * BATCH
+    got_by, share = {}, {}
+    for track in ("auto", False):
+        label = f"P3 SFO track_sfo={track!r}"
+        want = {"correlator": 1, "extract": 1, "recover": 0 if track else 1,
+                "viterbi": 0, "halo": 0}
+        # track=False: the payload carrier tracker, which comes after symbol
+        # recovery, slips on about a quarter of random 1200-byte QAM16
+        # payloads even without noise or drift, in the JAX package too
+        # (tests/test_torch_sfo.py); without it, the frames that fail are
+        # those the symbol recovery failed
+        res, got_by[label] = counted(label, want, lambda: framesync_fixed(
+            x, P3_CFG, max_frames, track_sfo=track, track=False))
+        if not bool(torch.isfinite(torch.view_as_real(res.symbols)).all()):
+            fail(f"{label}: symbols are not finite")
+        exact = (res.payload == payloads[:, None, :]).all(dim=-1) & res.payload_valid
+        if bool((res.payload_valid & ~exact).any()):
+            fail(f"{label}: a frame passed its CRC with another payload")
+        n = int(exact.sum())
+        if n > expected:
+            fail(f"{label}: {n} decoded frames of {expected} sent")
+        share[track] = n / expected
+        print(f"{label}: {n}/{expected} frames bit-exact ({share[track]:.2%}), "
+              f"{fs.FrameSpec(P3_CFG).frame_syms}-symbol frames at +-{P3_PPM:g} ppm, {P3_SNR:g} dB, "
+              f"{BATCH} x {BLOCK} [{card}]")
+    if share["auto"] < 0.99:
+        fail(f"P3: tracked decode {share['auto']:.2%} < 99 %")
+    if not share[False] < share["auto"]:
+        fail("P3: the static path decodes as many frames as the tracked one")
+    return got_by
+
+
+INFO_EXACT = ("header_valid", "payload_valid", "modulation", "inner_code", "outer_code",
+              "payload_len", "start", "batch")
+
+
+def same_infos(what: str, a: list, b: list) -> None:
+    """Two lists of packet_info dicts (each sorted by batch and start) carry
+    the same frames: integers and payload bytes equal, evm within 0.02 dB,
+    rssi 1e-3 dB, cfo 1e-6 rad/sample."""
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} infos against {len(b)}")
+    for x, y in zip(a, b):
+        for k in INFO_EXACT:
+            if x[k] != y[k]:
+                fail(f"{what}: {k} {x[k]} against {y[k]} (batch {x['batch']}, start {x['start']})")
+        if not np.array_equal(x["payload"], y["payload"]):
+            fail(f"{what}: payload bytes differ (batch {x['batch']}, start {x['start']})")
+        for k, tol in (("evm", 0.02), ("rssi", 1e-3), ("cfo", 1e-6)):
+            if not abs(x[k] - y[k]) <= tol:
+                fail(f"{what}: {k} {x[k]} against {y[k]}")
+
+
+def flexrx_run(cfgs, block, card: str) -> dict:
+    """P4: FlexRx at max_payload_len 64 on the mixed-config stream, plain and
+    with expected_configs. Returns the launch counts of both steps."""
+    x, payloads = block
+    n_frames = payloads.shape[1]
+    rx = FlexRx(max_payload_len=P4_PAYLOAD, max_frames_per_block=n_frames + 2)
+    n_inner = sum(1 for c in cfgs if c[1])
+    base = {"correlator": 1, "extract": 1, "recover": 0, "halo": 0}
+    # a channel is one config group; speculation adds one group a channel
+    infos, got = counted("P4 FlexRx", {**base, "viterbi": n_inner}, lambda: rx.work(x))
+    expected = [(m, i, o, P4_PAYLOAD) for m, i, o in cfgs]
+    infos_s, got_s = counted("P4 FlexRx speculative", {**base, "viterbi": 2 * n_inner},
+                             lambda: rx.work_complete(rx.work_submit(x, expected_configs=expected)))
+    same_infos("P4 speculative against plain", infos_s, infos)
+    ok, false = cs.frame_outcomes(infos, cfgs, payloads, P4_PAYLOAD)
+    total = BATCH * n_frames
+    if int(false.sum()):
+        fail(f"P4: {int(false.sum())} frames passed their CRC with a config or payload not sent")
+    if int(ok.sum()) < 0.99 * total:
+        fail(f"P4: decoded {int(ok.sum())} of {total} frames, need at least 99 %")
+    cpu = FlexRx(max_payload_len=P4_PAYLOAD, max_frames_per_block=n_frames + 2,
+                 device="cpu").work(x[:2].cpu())
+    same_infos("P4 GPU against CPU", [d for d in infos if d["batch"] < 2], cpu)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rx.work(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step = float(np.median(times))
+    print(f"P4 FlexRx: {int(ok.sum())}/{total} frames bit-exact against what was sent "
+          f"({int(ok.sum()) / total:.2%}), no false CRC pass, {len(infos)} packet infos, "
+          f"speculative run identical, channels 0-1 equal a CPU run; "
+          f"{BATCH} channels x {BLOCK}, {len({c[0] for c in cfgs})} modulations, "
+          f"{len({c[1] for c in cfgs})} inner and {len({c[2] for c in cfgs})} outer codes; "
+          f"step {step * 1e3:.2f} ms, {BATCH * BLOCK / step:.4g} samples/s; launches {got} "
+          f"(speculative {got_s}) [{card}]")
+    return {"P4 FlexRx": got, "P4 FlexRx speculative": got_s}
 
 
 def main() -> None:
@@ -792,6 +1014,17 @@ def main() -> None:
     st_stream = long_stream(st_cfg, st_snr, SH_BATCH, 3 * SH_TOTAL, gen)
     cl_streams = [tiled_stream(cfg, snr, CL_BATCH, BLOCK, gen) for cfg, snr in CLASS_CONFIGS]
     cl_sh_streams = [long_stream(cfg, snr, CL_SH_BATCH, CL_SH_TOTAL, gen) for cfg, snr in CLASS_CONFIGS]
+    # P1-P4: the first block of each sweep (as config_space_loopback makes
+    # it), the stretched stream, the mixed-config stream
+    sweep_first = []
+    for payload_len, mods in ((P1_PAYLOAD, None), (P2_PAYLOAD, [0])):
+        cfgs = [c for c in ALL_CONFIGS if mods is None or c[0] in mods][:8]
+        t_block = 2 * cs.slot_samples(payload_len) + cs.LEAD
+        sweep_first.append(cs.loopback_block(cfgs, payload_len, 2, t_block,
+                                             np.random.default_rng(0), DEV)[0])
+    p3_stream = stretched_stream(P3_CFG, P3_SNR, P3_PPM, BATCH, BLOCK, gen)
+    p4_cfgs, *p4_block = cs.mixed_stream(BATCH, BLOCK, P4_PAYLOAD, P4_SEED, DEV)
+    p4_frames = p4_block[1].shape[1]
     torch.cuda.synchronize()
 
     # kernel shapes of the main path: the candidates the detector finds
@@ -806,6 +1039,7 @@ def main() -> None:
     # 2 x 131,072
     st_window, st_k = streaming_shapes(st_cfg)
     ov_of = lambda cfg: fs.FrameSpec(cfg).frame_samples - 1
+    syms_of = lambda cfg: fs.FrameSpec(cfg).frame_syms
     st_x = torch.nn.functional.pad(  # the window of the first step: a zero carry
         st_stream[0][:, :SH_TOTAL], (ov_of(st_cfg), st_window - SH_TOTAL - ov_of(st_cfg)))
     halo_also = [(st_x, SH_NTIME, ov_of(st_cfg))] + [
@@ -824,13 +1058,29 @@ def main() -> None:
     rows = lambda x, n_time, cfg: halo_windows(x, n_time, ov_of(cfg)).reshape(x.shape[0] * n_time, -1)
     for (cfg, _, _), stream in zip(CONFIGS, sh_streams):
         check_path_shapes(kernels, "sharded " + config_name(cfg), rows(stream[0], SH_NTIME, cfg),
-                          cfg, shard_slots(cfg, SH_TOTAL // SH_NTIME), gen)
+                          syms_of(cfg), shard_slots(cfg, SH_TOTAL // SH_NTIME), gen)
     check_path_shapes(kernels, "streaming " + config_name(st_cfg), rows(st_x, SH_NTIME, st_cfg),
-                      st_cfg, st_k, gen)
+                      syms_of(st_cfg), st_k, gen)
     for (cfg, _), blk, sh in zip(CLASS_CONFIGS, cl_streams, cl_sh_streams):
-        check_path_shapes(kernels, config_name(cfg), blk[0], cfg, blk[3], gen)
+        check_path_shapes(kernels, config_name(cfg), blk[0], syms_of(cfg), blk[3], gen)
         check_path_shapes(kernels, "sharded " + config_name(cfg), rows(sh[0], CL_SH_NTIME, cfg),
-                          cfg, shard_slots(cfg, CL_SH_TOTAL // CL_SH_NTIME), gen)
+                          syms_of(cfg), shard_slots(cfg, CL_SH_TOTAL // CL_SH_NTIME), gen)
+    # the self-describing receiver's and the SFO path's shapes: FlexRx blocks
+    # at payload 32 (static) and 256 and 64 (SFO: no recover kernel), the
+    # stretched stream (SFO, and static in the comparison run), and the
+    # Viterbi kernel at every puncture and outer-code length those receivers
+    # decode
+    max_syms = lambda payload_len: fs.max_frame_spec(payload_len).frame_syms
+    check_path_shapes(kernels, "P1 FlexRx payload 32", sweep_first[0], max_syms(P1_PAYLOAD), 4, gen)
+    check_path_shapes(kernels, "P2 FlexRx payload 256 (SFO)", sweep_first[1], max_syms(P2_PAYLOAD),
+                      4, gen, recover=False)
+    check_path_shapes(kernels, "P3 framesync_fixed QAM16/1200", p3_stream[0], syms_of(P3_CFG),
+                      p3_stream[3], gen)
+    check_path_shapes(kernels, "P4 FlexRx payload 64 (SFO)", p4_block[0], max_syms(P4_PAYLOAD),
+                      p4_frames + 2, gen, recover=False)
+    for label, frames, payload_len in (("P1", 2, P1_PAYLOAD), ("P2", 2, P2_PAYLOAD),
+                                       ("P4", p4_frames, P4_PAYLOAD)):
+        check_viterbi_shapes(kernels, label, frames, payload_len, gen)
     print(f"kernels: all five agree with their plain versions at the shapes of every path "
           f"({time.perf_counter() - t_start:.0f} s)")
     if "--kernels-only" in sys.argv[1:]:
@@ -844,7 +1094,7 @@ def main() -> None:
     # a sharded or streaming step launches the halo kernel once besides.
     results, launches = [], {}
     for (cfg, _, _), (x, _, _, max_frames) in zip(CONFIGS, streams):
-        res, got = counted(f"config {config_name(cfg)}", cfg, 0,
+        res, got = counted(f"config {config_name(cfg)}", block_launches(cfg, 0),
                            lambda: framesync_fixed(x, cfg, max_frames))
         results.append(res)
         launches[config_name(cfg)] = got
@@ -877,6 +1127,20 @@ def main() -> None:
     for (cfg, snr), blk, sh in zip(CLASS_CONFIGS, cl_streams, cl_sh_streams):
         launches[config_name(cfg)], launches["sharded " + config_name(cfg)] = config_class_run(
             cfg, snr, blk, sh, card)
+    del cl_streams, cl_sh_streams, st_stream
+    print(f"config classes done ({time.perf_counter() - t_start:.0f} s)")
+
+    launches["P1 config space payload 32"] = sweep_run(
+        "P1 config space payload 32", P1_PAYLOAD, None, 8, card)
+    print(f"P1 done ({time.perf_counter() - t_start:.0f} s)")
+    launches["P2 long frames payload 256"] = sweep_run(
+        "P2 long frames payload 256, BPSK", P2_PAYLOAD, [0], 4, card)
+    print(f"P2 done ({time.perf_counter() - t_start:.0f} s)")
+    launches.update(sfo_run(p3_stream, card))
+    print(f"P3 done ({time.perf_counter() - t_start:.0f} s)")
+    print(f"P4 configs, one a channel: {p4_cfgs}")
+    launches.update(flexrx_run(p4_cfgs, p4_block, card))
+    print(f"P4 done ({time.perf_counter() - t_start:.0f} s)")
 
     for k in kernels:
         k["launches_by_config"] = {label: d[k["name"]] for label, d in launches.items()}

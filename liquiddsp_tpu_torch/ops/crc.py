@@ -1,13 +1,14 @@
-"""CRC-24 payload/header check, batched over messages.
+"""Cyclic redundancy checks, batched over messages.
 
-Counterpart of ``liquiddsp_tpu/ops/crc.py`` (``crc24``, ``crc24_append``,
-``crc24_check``). Spec: CRC-24/OPENPGP, polynomial 0x864CFB, init 0xB704CE,
-no reflection, no final xor, 3-byte checksum appended big-endian.
+Counterpart of ``liquiddsp_tpu/ops/crc.py``. The payload and header check is
+CRC-24/OPENPGP: polynomial 0x864CFB, init 0xB704CE, no reflection, no final
+xor, 3-byte checksum appended big-endian. CRC-16 (CCITT 0x1021, init 0xFFFF)
+and CRC-32 (reflected 0xEDB88320, zlib-compatible) complete the family.
 
 A CRC is GF(2)-affine in the message bits: crc(m) = c0 ^ (bits(m) @ F). One
-[N, 8L] x [8L, 24] float32 product against the per-length constant matrix
+[N, 8L] x [8L, W] float32 product against the per-length constant matrix
 replaces the byte-serial table walk; it is exact because row sums stay far
-below 2^24. CRC-16 and CRC-32 of the JAX package are not ported yet.
+below 2^24.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ from liquiddsp_tpu_torch.core.device import device_const
 
 CRC24_POLY = 0x864CFB
 CRC24_INIT = 0xB704CE
+CRC16_POLY = 0x1021
+CRC16_INIT = 0xFFFF
+CRC32_POLY_REFLECTED = 0xEDB88320
+CRC32_INIT = 0xFFFFFFFF
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,6 +58,20 @@ def crc24_host(data: bytes) -> int:
     return _crc_host(data, CRC24_POLY, 24, CRC24_INIT)
 
 
+def crc16_host(data: bytes) -> int:
+    return _crc_host(data, CRC16_POLY, 16, CRC16_INIT)
+
+
+def crc32_host(data: bytes) -> int:
+    """Standard reflected CRC-32 (IEEE 802.3 / zlib-compatible)."""
+    reg = CRC32_INIT
+    for byte in data:
+        reg ^= byte
+        for _ in range(8):
+            reg = (reg >> 1) ^ (CRC32_POLY_REFLECTED if reg & 1 else 0)
+    return reg ^ 0xFFFFFFFF
+
+
 @functools.lru_cache(maxsize=None)
 def _crc_matrix(length: int, poly: int, width: int, init: int):
     """(F [8*length, width] float32, c0 bits [width] float32): column j of F
@@ -79,22 +98,58 @@ def crc24_matrix(length: int) -> tuple[np.ndarray, np.ndarray]:
     return _crc_matrix(length, CRC24_POLY, 24, CRC24_INIT)
 
 
+@functools.lru_cache(maxsize=None)
+def _crc32_matrix(length: int):
+    """The reflected CRC-32 is GF(2)-affine in the message bits too; bit j of
+    byte i is its 2^j bit (LSB-first within the byte), and bit b of the
+    result is its 2^b bit."""
+    rows = []
+    for j in range(8 * length):
+        msg = bytearray(length)
+        msg[j // 8] = 1 << (j % 8)
+        rows.append(crc32_host(bytes(msg)) ^ crc32_host(bytes(length)))
+    c0 = crc32_host(bytes(length))
+    f = np.array([[(r >> b) & 1 for b in range(32)] for r in rows], dtype=np.float32)
+    c0_bits = np.array([(c0 >> b) & 1 for b in range(32)], dtype=np.float32)
+    return f, c0_bits
+
+
+def _crc_apply(msg_bytes: torch.Tensor, key: str, matrix, msb_first: bool) -> torch.Tensor:
+    """bits(m) @ F + c0 mod 2 over uint8 [..., L], packed into int64 [...]
+    (torch has little arithmetic on uint32). ``msb_first`` orders the bits of
+    each byte and of the result MSB-first; else LSB-first (reflected)."""
+    length = msg_bytes.shape[-1]
+    dev = msg_bytes.device
+    f = device_const((key + "_f", length), lambda: matrix(length)[0], dev)
+    c0 = device_const((key + "_c0", length), lambda: matrix(length)[1], dev)
+    width = f.shape[-1]
+    order = lambda n: np.arange(n)[::-1] if msb_first else np.arange(n)
+    shifts = device_const((key + "_shifts",), lambda: order(8).astype(np.int32), dev)
+    weights = device_const(
+        (key + "_weights",), lambda: np.left_shift(1, order(width)).astype(np.int64), dev)
+    bits = (msg_bytes.to(torch.int32)[..., None] >> shifts) & 1
+    bits = bits.reshape(msg_bytes.shape[:-1] + (8 * length,)).to(torch.float32)
+    crc_bits = torch.remainder(torch.remainder(bits @ f, 2.0) + c0, 2.0).to(torch.int64)
+    return torch.sum(crc_bits * weights, dim=-1)
+
+
 def crc24(msg_bytes: torch.Tensor) -> torch.Tensor:
     """CRC-24 over uint8 [..., L] -> int32 [...] (the value fits 24 bits;
     torch has little arithmetic on uint32)."""
-    length = msg_bytes.shape[-1]
-    dev = msg_bytes.device
-    f = device_const(("crc24_f", length), lambda: crc24_matrix(length)[0], dev)
-    c0 = device_const(("crc24_c0", length), lambda: crc24_matrix(length)[1], dev)
-    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=dev)
-    bits = (msg_bytes.to(torch.int32)[..., None] >> shifts) & 1  # MSB-first
-    bits = bits.reshape(msg_bytes.shape[:-1] + (8 * length,)).to(torch.float32)
-    sums = bits @ f  # [..., 24]
-    crc_bits = torch.remainder(torch.remainder(sums, 2.0) + c0, 2.0).to(torch.int32)
-    weights = torch.tensor(
-        [1 << (23 - b) for b in range(24)], dtype=torch.int32, device=dev
-    )
-    return torch.sum(crc_bits * weights, dim=-1).to(torch.int32)
+    return _crc_apply(msg_bytes, "crc24", crc24_matrix, True).to(torch.int32)
+
+
+def crc16(msg_bytes: torch.Tensor) -> torch.Tensor:
+    """CRC-16/CCITT over uint8 [..., L] -> int32 [...]."""
+    return _crc_apply(
+        msg_bytes, "crc16", lambda n: _crc_matrix(n, CRC16_POLY, 16, CRC16_INIT), True
+    ).to(torch.int32)
+
+
+def crc32(msg_bytes: torch.Tensor) -> torch.Tensor:
+    """Reflected CRC-32 (zlib-compatible) over uint8 [..., L] -> int64 [...]
+    (the JAX package returns uint32; int64 holds every value)."""
+    return _crc_apply(msg_bytes, "crc32", _crc32_matrix, False)
 
 
 def crc24_append(msg_bytes: torch.Tensor) -> torch.Tensor:

@@ -143,9 +143,11 @@ def detect(
     max_frames: int,
     threshold: float = DEFAULT_THRESHOLD,
     fine: bool = True,
+    return_count: bool = False,
+    *,
     tables: PhyTables | None = None,
     device: torch.device | str | None = None,
-) -> Detections:
+):
     """Find up to ``max_frames`` preamble hits in [B, T] samples.
 
     Fixed output shapes; invalid slots are masked. Local-max suppression
@@ -153,7 +155,9 @@ def detect(
     block and both neighbors, an *effective* suppression radius between one
     and two blocks (frames are far longer than that). ``fine=False`` skips the fine CFO refinement (dphi is then
     the coarse bin center): the framesync refines from its own frame windows
-    instead of re-extracting preambles.
+    instead of re-extracting preambles. ``return_count=True`` also returns the
+    TOTAL threshold-passing peak count per row [B] int32 (before the top-K
+    cut): a count above K means the top-K dropped real candidates.
     """
     dev = resolve_device(device)
     if tables is None:
@@ -211,7 +215,7 @@ def detect(
         dphi = coarse + fine_cfo(wins, coarse, tau, tables.delayed_templates)
     else:
         dphi = coarse
-    return Detections(
+    det = Detections(
         mask=mask,
         start=start,
         rho=torch.sqrt(torch.clamp(top_rho2, min=0.0)),
@@ -220,3 +224,20 @@ def detect(
         phi=phi.to(torch.float32),
         tau=tau.to(torch.float32),
     )
+    if return_count:
+        return det, torch.sum(is_peak.to(torch.int32), dim=-1, dtype=torch.int32)
+    return det
+
+
+def frame_detector_cc(
+    x: torch.Tensor,
+    max_frames: int = 16,
+    threshold: float = DEFAULT_THRESHOLD,
+    *,
+    device: torch.device | str | None = None,
+):
+    """Stream-block API of the reference's frame_detector_cc (1-in/1-out
+    passthrough + detection count): returns (passthrough, num_detected [B],
+    detections)."""
+    det = detect(x, max_frames, threshold, device=device)
+    return x, torch.sum(det.mask.to(torch.int32), dim=-1, dtype=torch.int32), det

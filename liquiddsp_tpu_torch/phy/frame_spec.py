@@ -124,3 +124,20 @@ class FrameSpec:
     @property
     def payload_sym_offset(self) -> int:
         return PREAMBLE_SYMS + HEADER_SYMS
+
+
+@functools.lru_cache(maxsize=None)
+def max_frame_spec(payload_len: int) -> FrameSpec:
+    """The longest frame over all 616 configs at this payload length, which
+    sizes a receiver's symbol buffer. The worst outer code depends on the
+    payload length (Golay, rate 1/2, for long payloads; Reed-Solomon's 32
+    parity bytes below about 30 bytes), so all 56 (inner, outer) pairs of
+    BPSK, the modulation with the fewest bits a symbol, are scanned."""
+    return max(
+        (
+            FrameSpec(FrameConfig(0, i, o, payload_len))
+            for i in range(7)
+            for o in range(8)
+        ),
+        key=lambda s: s.frame_syms,
+    )

@@ -17,11 +17,16 @@ processed at once:
 
 All shapes are fixed: [B, K] frame slots with validity masks.
 
+Frames of ``SFO_AUTO_SYMS`` symbols and more (and any frame with
+``track_sfo=True``) take the sample-clock-drift (SFO) path in place of step 3:
+complex windows, a decision-free fit of the sampling-instant trajectory over
+64-symbol segments, and a per-segment fractional-delay matched filter.
+
 ``framesync_fixed`` decodes payloads assuming one (mod, fec) config: the
-block receiver. Not ported yet, and raising ``NotImplementedError`` where
-reached: the sample-clock-drift (SFO) tracking path that the JAX package
-takes for frames of 2200 symbols and more. Not ported, and absent from the
-signatures: the ``equalize=False`` path, the genie and ablation hooks and
+block receiver. ``sync_common`` (steps 1-4) and ``decode_payload_symbols``
+(step 5) are the two halves that the self-describing receiver
+(runtime/blocks.FlexRx) composes with a payload config read from each
+header. Not ported, and absent from the signatures: the ablation hooks and
 ``slip_retry``.
 """
 
@@ -53,7 +58,8 @@ from liquiddsp_tpu_torch.phy.framegen import header_bytes_to_symbols
 from liquiddsp_tpu_torch.phy.tables import PhyTables, phy_tables
 
 NUM_TIMING_PHASES = 32
-SFO_AUTO_SYMS = 2200  # the JAX package tracks sample-clock drift from here on
+SFO_SEG = 64  # symbols per timing-tracking segment
+SFO_AUTO_SYMS = 2200  # track sample-clock drift on frames this long and longer
 
 
 @dataclasses.dataclass
@@ -114,11 +120,46 @@ def _timing_bank30() -> np.ndarray:
     return out
 
 
-def _candidate_taps30(det: Detections, bank30: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _timing_bank65() -> np.ndarray:
+    """Extended fractional-delay bank covering a +-1.0-sample range for
+    symbol-timing (SFO) tracking: row q samples the matched-filter output at
+    nominal + (q - P)/P samples, q in [0, 2P].
+
+    Same construction as _timing_bank30 but with the integer sample shift
+    folded over a 3-position base range, and a global +1 placement so the
+    caller reads the window with a one-sample front pad:
+    y[s] = sum_v winp[2s+v] * bank65[q, v], winp = [0, win...].
+    """
+    p_half = NUM_TIMING_PHASES
+    bank = rrc.fractional_delay_bank(NUM_TIMING_PHASES)  # [P, 29]
+    W = fs.PULSE_LEN + 3  # 32 taps (last tap always zero)
+    out = np.zeros((2 * p_half + 1, W), dtype=np.float32)
+    for q in range(2 * p_half + 1):
+        p = q - p_half  # sampling offset p/P in [-1, 1]
+        a = int(np.floor(p / p_half))  # integer sample shift {-1, 0, 1}
+        pp = p - a * p_half  # fractional phase in [0, P)
+        base = 1 - a  # {0, 1, 2}
+        out[q, base : base + fs.PULSE_LEN] = bank[pp][::-1]
+    return out
+
+
+def _prototype_taps30() -> np.ndarray:
+    """The symmetric matched filter as one 30-tap row (no timing correction)."""
+    t30 = np.zeros(fs.PULSE_LEN + 1, dtype=np.float32)
+    t30[: fs.PULSE_LEN] = rrc.matched_taps()[::-1]
+    return t30
+
+
+def _candidate_taps30(det: Detections, bank30: torch.Tensor, timing_bank: bool = True) -> torch.Tensor:
     """Per-candidate 30-tap matched-filter rows [B, K, 30]: the detector's
     tau is "signal arrives tau samples late", so sampling on the fixed even
     decimation grid must be *advanced* by tau, which the bank's
-    delay-indexed rows express as row -tau."""
+    delay-indexed rows express as row -tau. ``timing_bank=False`` gives every
+    candidate the symmetric prototype."""
+    if not timing_bank:
+        proto = device_const(("mf_proto30",), _prototype_taps30, bank30.device)
+        return proto.expand(det.start.shape + proto.shape).contiguous()
     p_half = NUM_TIMING_PHASES // 2
     q = torch.clamp(
         torch.round(-det.tau * NUM_TIMING_PHASES).to(torch.int64), -p_half, p_half
@@ -126,28 +167,163 @@ def _candidate_taps30(det: Detections, bank30: torch.Tensor) -> torch.Tensor:
     return bank30[q]
 
 
+def _recover_planes(wr, wi, det: Detections, n_syms: int, tables: PhyTables,
+                    timing_bank: bool) -> torch.Tensor:
+    """Derotation, gain normalisation, matched filter and decimation of window
+    planes [B, K, n] by the recover kernel -> symbols [B, K, n_syms]."""
+    return recover_symbols_planes(
+        wr, wi, det.dphi.contiguous(), det.phi.contiguous(), det.gamma.contiguous(),
+        _candidate_taps30(det, tables.timing_bank30, timing_bank), n_syms,
+    )
+
+
+def symbols_from_windows(
+    win: torch.Tensor, det: Detections, n_syms: int, timing_bank: bool = True,
+    *, tables: PhyTables | None = None,
+) -> torch.Tensor:
+    """Candidate windows [B, K, 2*n_syms + PULSE_TAIL] complex64 -> symbol
+    estimates [B, K, n_syms] on the static path (one fractional delay per
+    frame). ``timing_bank=False`` gives every candidate the symmetric
+    prototype instead of its delay row."""
+    if tables is None:
+        tables = phy_tables(None, win.device)
+    return _recover_planes(win.real.contiguous(), win.imag.contiguous(), det, n_syms,
+                           tables, timing_bank)
+
+
+def _derotate_window(win: torch.Tensor, det: Detections) -> torch.Tensor:
+    """NCO derotation + gain normalization of candidate windows [B, K, S].
+
+    The rotation exp(-j(dphi*n+phi)) is built as a coarse x fine outer
+    product: 2 complex multiplies per sample instead of one transcendental."""
+    n_samples = win.shape[-1]
+    fine_n = 32
+    n_coarse = -(-n_samples // fine_n)
+    dev = win.device
+    nf = torch.arange(fine_n, dtype=torch.float32, device=dev)
+    ncs = torch.arange(n_coarse, dtype=torch.float32, device=dev) * fine_n
+    e_fine = expj(-(det.dphi[..., None] * nf))  # [B, K, fine]
+    e_coarse = expj(-(det.dphi[..., None] * ncs + det.phi[..., None]))  # [B, K, coarse]
+    nco = (e_coarse[..., :, None] * e_fine[..., None, :]).reshape(
+        det.start.shape + (n_coarse * fine_n,)
+    )[..., :n_samples]
+    return win * nco / torch.clamp(det.gamma[..., None], min=1e-9)
+
+
+def _segment_windows(win_d: torch.Tensor, nseg: int, seg: int) -> torch.Tensor:
+    """The 32-sample input windows of every output symbol of every segment,
+    as float32 planes [2 (real, imag), ..., nseg, seg, 32]:
+    out[p, ..., s, j, v] = winp[2*seg*s + 2*j + v], winp = [0, win_d, 0...].
+
+    Segment s reads winp[2*seg*s : 2*seg*s + 2*seg + 30]; the pad at the end
+    only reaches where the last segment runs past the window, which is never
+    cut. One product with the taps then filters and decimates all segments."""
+    L = 2 * seg + 30
+    need = 2 * seg * (nseg - 1) + L
+    planes = torch.stack([win_d.real, win_d.imag])  # [2, ..., S]
+    planes = torch.nn.functional.pad(planes, (1, max(0, need - win_d.shape[-1] - 1)))
+    segw = planes.unfold(-1, L, 2 * seg)[..., :nseg, :]  # [2, ..., nseg, L]
+    return segw.unfold(-1, 32, 2).contiguous()  # [2, ..., nseg, seg, 32]
+
+
+def _segment_recover(windows: torch.Tensor, taps: torch.Tensor, n_syms: int) -> torch.Tensor:
+    """Per-segment polyphase matched filter + k=2 decimation:
+    y[s*seg + j] = sum_v windows[..., s, j, v] * taps[..., s, v].
+
+    ``windows`` from _segment_windows; ``taps`` [..., nseg, 32] the
+    _timing_bank65 row of each segment (its tracked sampling instant).
+    Returns [..., n_syms] complex64."""
+    y = torch.matmul(windows, taps[..., :, :, None])[..., 0]  # [2, ..., nseg, seg]
+    y = torch.complex(y[0], y[1])
+    return y.reshape(y.shape[:-2] + (-1,))[..., :n_syms]
+
+
+_SFO_DELTAS = (-0.5, -0.25, 0.0, 0.25, 0.5)  # trial offsets, samples
+
+
+def _sfo_fit(windows: torch.Tensor, tau: torch.Tensor, seg: int, bank65: torch.Tensor) -> torch.Tensor:
+    """Estimate the per-segment sampling-instant trajectory u(s) = a + b*s
+    (residual timing offset + sample-clock drift) and return bank65 rows
+    [B, K, nseg].
+
+    Decision-free power metric: the matched-filter output power over a
+    segment peaks at the correct sampling instant (the RRC timing tone,
+    beta=0.3). Five trial offsets spanning +-0.5 sample are filtered in one
+    product; a per-segment parabolic vertex around the best trial gives u_s,
+    and a contrast-weighted least-squares line over segments smooths it into
+    the (offset, drift) model. The fitted drift is clipped to +-100 ppm so a
+    noise-floor fit can never do worse than the static path by more than a
+    bank step or two.
+    """
+    P = NUM_TIMING_PHASES
+    nseg = windows.shape[-3]
+    deltas = torch.tensor(_SFO_DELTAS, dtype=torch.float32, device=tau.device)
+    q = torch.clamp(torch.round((-tau[..., None] + deltas) * P).to(torch.int64), -P, P) + P
+    taps = bank65[q].transpose(-1, -2)  # [B, K, 32, 5]
+    y = torch.matmul(windows, taps[..., None, :, :])  # [2, B, K, nseg, seg, 5]
+    M = torch.sum(torch.abs(torch.complex(y[0], y[1])) ** 2, dim=-2)  # [B, K, nseg, 5]
+
+    jbest = torch.clamp(torch.argmax(M, dim=-1), 1, 3)  # interior for the parabola
+    take = lambda off: torch.gather(M, -1, (jbest + off)[..., None])[..., 0]
+    m_lo, m_0, m_hi = take(-1), take(0), take(1)
+    denom = m_lo - 2.0 * m_0 + m_hi
+    vert = 0.125 * (m_lo - m_hi) / torch.where(
+        torch.abs(denom) > 1e-20, denom, torch.ones_like(denom))
+    vert = torch.clamp(vert, -0.125, 0.125)
+    u_s = -tau[..., None] + _SFO_DELTAS[1] + 0.25 * (jbest - 1).to(torch.float32) + vert
+
+    # contrast-weighted LS line u(s) = a + b*s over segments
+    w = torch.clamp(torch.amax(M, dim=-1) - torch.amin(M, dim=-1), min=0.0) ** 2
+    s_idx = torch.arange(nseg, dtype=torch.float32, device=tau.device)
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-20)
+    s_bar = torch.sum(w * s_idx, dim=-1) / wsum
+    u_bar = torch.sum(w * u_s, dim=-1) / wsum
+    ds = s_idx - s_bar[..., None]
+    var = torch.clamp(torch.sum(w * ds**2, dim=-1), min=1e-20)
+    b = torch.sum(w * ds * u_s, dim=-1) / var
+    b = torch.clamp(b, -2e-4 * 2 * seg, 2e-4 * 2 * seg)  # +-100 ppm drift cap
+    a = u_bar - b * s_bar
+    u_fit = a[..., None] + b[..., None] * s_idx
+    return torch.clamp(torch.round(u_fit * P).to(torch.int64), -P, P) + P
+
+
+def _sfo_recover(win: torch.Tensor, det: Detections, n_syms: int, bank65: torch.Tensor,
+                 seg: int = SFO_SEG) -> torch.Tensor:
+    """Symbol recovery with sample-clock-drift (SFO) tracking: estimate the
+    sampling-instant trajectory across the frame and matched-filter each
+    segment at its own fractional delay. The static per-frame tau drifts off
+    by >0.1 sample beyond ~2500 symbols at 50 ppm."""
+    win_d = _derotate_window(win, det)
+    nseg = -(-n_syms // seg)
+    windows = _segment_windows(win_d, nseg, seg)
+    q_seg = _sfo_fit(windows, det.tau, seg, bank65)
+    return _segment_recover(windows, bank65[q_seg], n_syms)
+
+
 def recover_candidates(
-    x: torch.Tensor, det: Detections, n_syms: int, tables: PhyTables
+    x: torch.Tensor, det: Detections, n_syms: int, tables: PhyTables,
+    timing_bank: bool = True, track_sfo: bool = False, fine: bool = True,
 ) -> tuple[Detections, torch.Tensor]:
     """Stages 2-3: one window extraction serves both the fine CFO estimate
-    (from the preamble prefix of each frame window) and symbol recovery.
-    Returns (det with refined dphi, symbols [B, K, n_syms])."""
-    if n_syms >= SFO_AUTO_SYMS:
-        raise NotImplementedError(
-            f"frames of {n_syms} >= {SFO_AUTO_SYMS} symbols need the sample-"
-            "clock-drift tracking path, which is not ported yet"
-        )
+    (from the preamble prefix of each frame window, skipped with
+    ``fine=False``) and symbol recovery. The static path reads the windows as
+    float32 planes into the recover kernel; ``track_sfo`` takes the SFO path
+    on complex windows. Returns (det with refined dphi, symbols [B, K,
+    n_syms])."""
     n_samples = fs.K_SAMP * n_syms + fs.PULSE_TAIL
-    wr, wi = extract_windows(x, det.start, n_samples, return_planes=True)
-    pre = torch.complex(wr[..., :TEMPLATE_LEN], wi[..., :TEMPLATE_LEN])
-    det = dataclasses.replace(
-        det, dphi=det.dphi + fine_cfo(pre, det.dphi, det.tau, tables.delayed_templates)
-    )
-    syms = recover_symbols_planes(
-        wr, wi, det.dphi, det.phi, det.gamma,
-        _candidate_taps30(det, tables.timing_bank30), n_syms,
-    )
-    return det, syms
+    start = det.start.to(torch.int32).contiguous()
+    if track_sfo:
+        win = extract_windows(x, start, n_samples)
+        if fine:
+            det = dataclasses.replace(det, dphi=det.dphi + fine_cfo(
+                win[..., :TEMPLATE_LEN], det.dphi, det.tau, tables.delayed_templates))
+        return det, _sfo_recover(win, det, n_syms, tables.timing_bank65)
+    wr, wi = extract_windows(x, start, n_samples, return_planes=True)
+    if fine:
+        pre = torch.complex(wr[..., :TEMPLATE_LEN], wi[..., :TEMPLATE_LEN])
+        det = dataclasses.replace(det, dphi=det.dphi + fine_cfo(
+            pre, det.dphi, det.tau, tables.delayed_templates))
+    return det, _recover_planes(wr, wi, det, n_syms, tables, timing_bank)
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +358,26 @@ def decode_header_multi(regions: list[torch.Tensor]):
     inner = hdr[..., 17].to(torch.int32)
     outer = hdr[..., 18].to(torch.int32)
     return (valid, user, plen, mod, inner, outer), hdr
+
+
+def decode_header_full(hdr_syms: torch.Tensor):
+    """[..., 180] header symbols -> ((header_valid, user_bytes[..., 14],
+    payload_len, modulation, inner, outer), hdr_bytes[..., 22]): the
+    one-branch case of decode_header_multi."""
+    (v, u, pl, m, i, o), hb = decode_header_multi([hdr_syms])
+    return (v[..., 0], u[..., 0, :], pl[..., 0], m[..., 0], i[..., 0], o[..., 0]), hb[..., 0, :]
+
+
+def decode_header(hdr_syms: torch.Tensor):
+    """[..., 180] header symbols -> (header_valid, user_bytes[..., 14],
+    payload_len, modulation, inner, outer)."""
+    return decode_header_full(hdr_syms)[0]
+
+
+def _header_reference_symbols(hdr_bytes: torch.Tensor) -> torch.Tensor:
+    """Re-encode decoded header bytes [..., 22] back to the TX's 180 QPSK
+    header symbols: bit-exactly the transmitted header when its CRC passed."""
+    return header_bytes_to_symbols(hdr_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -455,91 +651,109 @@ def _apply_carrier(syms: torch.Tensor, phi_b: torch.Tensor, dphi: torch.Tensor) 
     return syms * expj(-(phi_b[..., None] + dphi[..., None] * (n - n_b)))
 
 
+def _refine_carrier(syms: torch.Tensor, pre_ref: torch.Tensor) -> torch.Tensor:
+    """Decision-free residual carrier correction from preamble + header
+    (_carrier_fit), applied to the whole symbol stream; payload residuals are
+    left to the payload tracker."""
+    return _apply_carrier(syms, *_carrier_fit(syms, pre_ref))
+
+
 # ---------------------------------------------------------------------------
 # common sync front-end (detect + symbols + header), then the payload back-end
 # ---------------------------------------------------------------------------
 
 
-def sync_symbols(syms: torch.Tensor, tables: PhyTables):
+def sync_symbols(syms: torch.Tensor, tables: PhyTables, refine: bool = True,
+                 equalize: bool = True):
     """Stage 4 on recovered symbols [B, K, n_syms]: two-stage equalizer,
     carrier fit, three-branch header decode. Returns (refined symbols,
-    (hdr_valid, user, plen, mod, inner, outer), evm_lin, hdr_tx_ref).
+    (hdr_valid, user, plen, mod, inner, outer), evm_lin, hdr_tx_ref), where
+    hdr_tx_ref is ``None`` with ``equalize=False``.
 
     EQ1 trained on the 64 known preamble symbols gets the header decodable
     under static ISI; once the header decodes, EQ2 retrains on preamble +
     re-encoded header (244 known symbols) and re-equalizes the whole frame
     for the payload. Invalid-header candidates keep the EQ1 taps.
 
-    The header is decoded from the equalized, the raw (refined) and a
-    per-segment tracked stream in ONE pass, and any CRC pass is accepted,
-    preferring equalized, then raw, then tracked.
+    The header is decoded from the equalized, the raw and a per-segment
+    tracked stream in ONE pass, and any CRC pass is accepted, preferring
+    equalized, then raw, then tracked. ``refine`` fits the linear carrier
+    model to the equalized and raw branches and derotates the stream by the
+    winning one. ``equalize=False`` decodes the header once, from the stream
+    refined by one carrier fit (``refine``) or as it came.
     """
     h0, h1 = fs.PREAMBLE_SYMS, fs.PREAMBLE_SYMS + fs.HEADER_SYMS
     pre_ref = tables.preamble
-    w1 = _eq_train(syms, None)
-    c = EQ_TAPS // 2
-    hdr_region = _eq_apply(w1, syms[..., : h1 + c], n_out=h1)
-    raw_region = syms[..., :h1]
-    # absolute phase at the preamble tail of the EQ1 stream (known symbols:
-    # no modular ambiguity) anchors the tracked header branch independently
-    # of the linear carrier fit
-    qp1 = torch.sum(
-        hdr_region[..., h0 - 32 : h0 - 16] * torch.conj(pre_ref[-32:-16]), dim=-1
-    )
-    qp2 = torch.sum(hdr_region[..., h0 - 16 : h0] * torch.conj(pre_ref[-16:]), dim=-1)
-    slope_pre = torch.angle(qp2 * torch.conj(qp1)) / 16.0  # rad/symbol
-    # extrapolate to the center of the first tracked header segment
-    # (seg=18): 8 symbols from the qp2 center to h0, +9 into the header
-    anchor_pre = torch.angle(qp2) + slope_pre * (8.0 + 9.0)
-    hdr_pre_fit = hdr_region  # EQ1 stream before any carrier model
-    fit_eq = _carrier_fit(hdr_region, pre_ref)
-    fit_raw = _carrier_fit(syms, pre_ref)
-    hdr_region = _apply_carrier(hdr_region, *fit_eq)
-    raw_region = _apply_carrier(raw_region, *fit_raw)
-    hdr_trk = _dd_phase_track(
-        hdr_pre_fit[..., h0:h1], fs.HEADER_MOD, seg=18,
-        anchor=anchor_pre, anchor_slope=slope_pre,
-    )
-    (v3, u3, pl3, m3, i3, o3), hb3 = decode_header_multi(
-        [hdr_region[..., h0:h1], raw_region[..., h0:h1], hdr_trk]
-    )
-    v_eq, v_raw, v_trk = v3[..., 0], v3[..., 1], v3[..., 2]
-    hdr_valid = v_eq | v_raw | v_trk
-    pick = v_eq  # prefer the equalized decode, then raw, then tracked
-    p_raw = (~v_eq) & v_raw
-
-    def pick3(a):  # a: [..., 3] or [..., 3, n]
-        if a.dim() == v3.dim():
-            return torch.where(pick, a[..., 0], torch.where(p_raw, a[..., 1], a[..., 2]))
-        return torch.where(
-            pick[..., None], a[..., 0, :],
-            torch.where(p_raw[..., None], a[..., 1, :], a[..., 2, :]),
+    hdr_tx_ref = None
+    if not equalize:
+        if refine:
+            syms = _refine_carrier(syms, pre_ref)
+        fields = decode_header(syms[..., h0:h1])
+    else:
+        w1 = _eq_train(syms, None)
+        c = EQ_TAPS // 2
+        hdr_region = _eq_apply(w1, syms[..., : h1 + c], n_out=h1)
+        raw_region = syms[..., :h1]
+        # absolute phase at the preamble tail of the EQ1 stream (known
+        # symbols: no modular ambiguity) anchors the tracked header branch
+        # independently of the linear carrier fit
+        qp1 = torch.sum(
+            hdr_region[..., h0 - 32 : h0 - 16] * torch.conj(pre_ref[-32:-16]), dim=-1
         )
+        qp2 = torch.sum(hdr_region[..., h0 - 16 : h0] * torch.conj(pre_ref[-16:]), dim=-1)
+        slope_pre = torch.angle(qp2 * torch.conj(qp1)) / 16.0  # rad/symbol
+        # extrapolate to the center of the first tracked header segment
+        # (seg=18): 8 symbols from the qp2 center to h0, +9 into the header
+        anchor_pre = torch.angle(qp2) + slope_pre * (8.0 + 9.0)
+        hdr_pre_fit = hdr_region  # EQ1 stream before any carrier model
+        if refine:
+            fit_eq = _carrier_fit(hdr_region, pre_ref)
+            fit_raw = _carrier_fit(syms, pre_ref)
+            hdr_region = _apply_carrier(hdr_region, *fit_eq)
+            raw_region = _apply_carrier(raw_region, *fit_raw)
+        hdr_trk = _dd_phase_track(
+            hdr_pre_fit[..., h0:h1], fs.HEADER_MOD, seg=18,
+            anchor=anchor_pre, anchor_slope=slope_pre,
+        )
+        (v3, u3, pl3, m3, i3, o3), hb3 = decode_header_multi(
+            [hdr_region[..., h0:h1], raw_region[..., h0:h1], hdr_trk]
+        )
+        v_eq, v_raw, v_trk = v3[..., 0], v3[..., 1], v3[..., 2]
+        hdr_valid = v_eq | v_raw | v_trk
+        pick = v_eq  # prefer the equalized decode, then raw, then tracked
+        p_raw = (~v_eq) & v_raw
 
-    user, plen, mod, inner, outer = (pick3(a) for a in (u3, pl3, m3, i3, o3))
-    hdr_bytes = pick3(hb3)
-    # derotate the full stream with the winning branch's fit (the tracked
-    # branch rides the EQ branch's fit)
-    use_eq_fit = pick | (~p_raw)
-    phi_b = torch.where(use_eq_fit, fit_eq[0], fit_raw[0])
-    dphi = torch.where(use_eq_fit, fit_eq[1], fit_raw[1])
-    syms = _apply_carrier(syms, phi_b, dphi)
-    # re-encode the decoded header back to the TX's 180 QPSK symbols: the EQ
-    # retraining reference, bit-exactly the transmitted header when its CRC
-    # passed (``_header_reference_symbols`` in the JAX package)
-    hdr_tx_ref = header_bytes_to_symbols(hdr_bytes)  # [B, K, 180]
-    refs = torch.cat(
-        [pre_ref.expand(hdr_tx_ref.shape[:-1] + (h0,)), hdr_tx_ref], dim=-1
-    )
-    w2 = _eq_train(syms, refs)
-    w = torch.where(hdr_valid[..., None], w2, w1)
-    syms = _eq_apply(w, syms)
+        def pick3(a):  # a: [..., 3] or [..., 3, n]
+            if a.dim() == v3.dim():
+                return torch.where(pick, a[..., 0], torch.where(p_raw, a[..., 1], a[..., 2]))
+            return torch.where(
+                pick[..., None], a[..., 0, :],
+                torch.where(p_raw[..., None], a[..., 1, :], a[..., 2, :]),
+            )
+
+        user, plen, mod, inner, outer = (pick3(a) for a in (u3, pl3, m3, i3, o3))
+        fields = (hdr_valid, user, plen, mod, inner, outer)
+        hdr_bytes = pick3(hb3)
+        if refine:
+            # derotate the full stream with the winning branch's fit (the
+            # tracked branch rides the EQ branch's fit)
+            use_eq_fit = pick | (~p_raw)
+            phi_b = torch.where(use_eq_fit, fit_eq[0], fit_raw[0])
+            dphi = torch.where(use_eq_fit, fit_eq[1], fit_raw[1])
+            syms = _apply_carrier(syms, phi_b, dphi)
+        hdr_tx_ref = _header_reference_symbols(hdr_bytes)  # [B, K, 180]
+        refs = torch.cat(
+            [pre_ref.expand(hdr_tx_ref.shape[:-1] + (h0,)), hdr_tx_ref], dim=-1
+        )
+        w2 = _eq_train(syms, refs)
+        w = torch.where(hdr_valid[..., None], w2, w1)
+        syms = _eq_apply(w, syms)
 
     # header EVM from the refined symbols' own hard decisions
     hdr_idx = modem.demod_hard(syms[..., h0:h1], fs.HEADER_MOD)
     hdr_dec_ref = modem.modulate(hdr_idx, fs.HEADER_MOD)
     evm_lin = torch.mean(torch.abs(syms[..., h0:h1] - hdr_dec_ref) ** 2, dim=-1)
-    return syms, (hdr_valid, user, plen, mod, inner, outer), evm_lin, hdr_tx_ref
+    return syms, fields, evm_lin, hdr_tx_ref
 
 
 def sync_common(
@@ -547,26 +761,56 @@ def sync_common(
     n_syms: int,
     max_frames: int,
     threshold: float = 0.45,
+    refine: bool = True,
+    timing_bank: bool = True,
+    equalize: bool = True,
+    track_sfo: bool | str = "auto",
+    det_override: Detections | None = None,
+    fine: bool = True,
+    return_peak_count: bool = False,
+    return_hdr_ref: bool = False,
+    *,
     tables: PhyTables | None = None,
     device: torch.device | str | None = None,
 ):
     """Config-independent RX front-end: [B, T] -> (det, refined symbols
-    [B, K, n_syms], header fields, header EVM, re-encoded header symbols).
-    ``n_syms`` is the symbol-buffer size (the longest frame the caller
-    expects).
+    [B, K, n_syms], header fields, header EVM), then the peak count per row
+    with ``return_peak_count`` and the re-encoded header symbols with
+    ``return_hdr_ref``. ``n_syms`` is the symbol-buffer size (the longest
+    frame the caller expects).
 
-    ``evm_lin`` [B, K] is the post-refinement header-symbol error-vector
-    power: the per-frame noise-variance estimate the payload soft demod
-    consumes.
+    ``track_sfo``: ``"auto"`` tracks sample-clock drift where
+    ``n_syms >= SFO_AUTO_SYMS``. ``det_override`` replaces the detector with
+    externally supplied candidates (on ``device``); ``fine=False`` skips the
+    per-frame fine-CFO refinement. ``evm_lin`` [B, K] is the post-refinement
+    header-symbol error-vector power: the per-frame noise-variance estimate
+    the payload soft demod consumes.
     """
     dev = resolve_device(device)
     if tables is None:
         tables = phy_tables(None, dev)
     x = x.to(device=dev, dtype=torch.complex64).contiguous()
-    det = detect(x, max_frames, threshold, fine=False, tables=tables, device=dev)
-    det, syms = recover_candidates(x, det, n_syms, tables)
-    syms, fields, evm_lin, hdr_tx_ref = sync_symbols(syms, tables)
-    return det, syms, fields, evm_lin, hdr_tx_ref
+    peak_count = None
+    if det_override is not None:
+        det = det_override
+        if return_peak_count:
+            peak_count = torch.sum(det.mask.to(torch.int32), dim=-1, dtype=torch.int32)
+    elif return_peak_count:
+        det, peak_count = detect(x, max_frames, threshold, fine=False, return_count=True,
+                                 tables=tables, device=dev)
+    else:
+        det = detect(x, max_frames, threshold, fine=False, tables=tables, device=dev)
+    if track_sfo == "auto":
+        # sample-clock drift only walks off the symbol grid on long frames
+        track_sfo = n_syms >= SFO_AUTO_SYMS
+    det, syms = recover_candidates(x, det, n_syms, tables, timing_bank, track_sfo, fine)
+    syms, fields, evm_lin, hdr_tx_ref = sync_symbols(syms, tables, refine, equalize)
+    out = (det, syms, fields, evm_lin)
+    if return_peak_count:
+        out = out + (peak_count,)
+    if return_hdr_ref:
+        out = out + (hdr_tx_ref,)
+    return out
 
 
 DD_PASSES = 2  # tracker passes: V&V (when it runs) counts as the first
@@ -755,34 +999,57 @@ def _dd_gain_passes(flat, pay, mod, nseg, seg, n, n_dd, return_weight=False):
 def decode_payload_symbols(
     syms: torch.Tensor,
     cfg: FrameConfig,
-    noise_var: torch.Tensor,
-    anchor: torch.Tensor,
-    anchor_slope: torch.Tensor,
-    tables: PhyTables,
+    track: bool = True,
+    noise_var: torch.Tensor | float | None = None,
+    anchor: torch.Tensor | None = None,
+    anchor_slope: torch.Tensor | float = 0.0,
+    *,
+    tables: PhyTables | None = None,
 ):
     """Fixed-config payload back-end: symbols [.., n_syms >= frame_syms] ->
     (payload bytes [..., payload_len], crc_ok bool[...]).
 
-    ``noise_var``: per-frame noise-variance estimate [...] for LLR scaling
-    (the header EVM from sync_common). ``anchor``: absolute phase at the
-    payload start (symbol h1) for the payload tracker's segment-0 branch,
-    with ``anchor_slope`` its rad/symbol rate (framesync_fixed reconstructs
-    both from the re-encoded decoded header).
+    ``noise_var``: per-frame noise-variance estimate for LLR scaling (the
+    header EVM from sync_common), scalar or [...]; 0.1 when ``None``.
+    ``anchor``: absolute phase at the payload start (symbol h1) for the
+    payload tracker's segment-0 branch, with ``anchor_slope`` its rad/symbol
+    rate (framesync_fixed reconstructs both from the re-encoded decoded
+    header). Without it, a V&V estimate of the header tail is used (fold-free
+    only while the residual there is < pi/4). ``track=False`` skips the
+    carrier tracker and its fading weights.
     """
+    if tables is None:
+        tables = phy_tables(cfg, syms.device)
     spec = fs.FrameSpec(cfg)
     h1 = fs.PREAMBLE_SYMS + fs.HEADER_SYMS
     pay = syms[..., h1 : h1 + spec.payload_syms]
-    # Pre-derotate the payload by the measured header-exit line (anchor
-    # phase + slope): the residual the tracker sees then starts at ~zero
-    # phase and ~zero slope
-    t_rel = torch.arange(pay.shape[-1], dtype=torch.float32, device=pay.device)
-    line = anchor[..., None] + anchor_slope[..., None] * t_rel
-    pay = pay * expj(-line)
-    pay, gmag = _dd_phase_track(pay, cfg.modulation, seg=32, return_weight=True)
-    nv = torch.clamp(noise_var.to(torch.float32), min=1e-4)[..., None]
-    # Fading-aware LLR scaling: the gain passes DIVIDED each segment by its
-    # estimated complex gain, so post-normalization noise is up by 1/|g|^2
-    nv = nv / torch.square(gmag)
+    dev = syms.device
+    gmag = None
+    if track:
+        if anchor is None:
+            # header-tail V&V anchor (always QPSK, m=4): chains the payload
+            # trajectory to the last known-good phase
+            ut = torch.sum(_vv_stat(syms[..., h1 - 40 : h1], 4), dim=-1)
+            _, psi4 = _mth_power_phase(modem.constellation(fs.HEADER_MOD), 4)
+            anchor = torch.angle(ut * complex(np.exp(-1j * psi4))) / 4.0
+        # Pre-derotate the payload by the measured header-exit line (anchor
+        # phase + slope): the residual the tracker sees then starts at ~zero
+        # phase and ~zero slope
+        t_rel = torch.arange(pay.shape[-1], dtype=torch.float32, device=dev)
+        slope = torch.as_tensor(anchor_slope, dtype=torch.float32, device=dev)
+        line = anchor[..., None] + slope[..., None] * t_rel
+        pay = pay * expj(-line)
+        pay, gmag = _dd_phase_track(pay, cfg.modulation, seg=32, return_weight=True)
+    if noise_var is None:
+        noise_var = 0.1
+    nv = torch.clamp(torch.as_tensor(noise_var, dtype=torch.float32, device=dev), min=1e-4)
+    if nv.dim():
+        nv = nv[..., None]  # broadcast over the per-symbol axis
+    if gmag is not None:
+        # Fading-aware LLR scaling: the gain passes DIVIDED each segment by
+        # its estimated complex gain, so post-normalization noise is up by
+        # 1/|g|^2 there
+        nv = nv / torch.square(gmag)
     llr = modem.demod_soft_bits(pay, cfg.modulation, nv)
     llr = llr[..., : spec.inner_bits]  # drop modulation pad bits
     llr = llr[..., tables.interleave_inv]
@@ -797,31 +1064,60 @@ def framesync_fixed(
     cfg: FrameConfig,
     max_frames: int,
     threshold: float = 0.45,
+    refine: bool = True,
+    timing_bank: bool = True,
+    equalize: bool = True,
+    track_sfo: bool | str = "auto",
+    det_override: Detections | None = None,
+    fine: bool = True,
+    track: bool = True,
+    noise_var_override: torch.Tensor | float | None = None,
+    return_peak_count: bool = False,
+    *,
     tables: PhyTables | None = None,
     device: torch.device | str | None = None,
-) -> FrameResults:
+):
     """Full RX for blocks known to carry frames of one config.
 
     [B, T] samples -> FrameResults with [B, K] slots, on ``device``
-    (``None``: the GPU). Frames straddling the block end are not decoded.
+    (``None``: the GPU), and the peak count per row with
+    ``return_peak_count``. Frames straddling the block end are not decoded.
+    The options are sync_common's; ``track`` and ``noise_var_override`` are
+    decode_payload_symbols' ``track`` and ``noise_var`` (the header EVM when
+    ``None``).
     """
     dev = resolve_device(device)
     if tables is None:
         tables = phy_tables(cfg, dev)
     spec = fs.FrameSpec(cfg)
-    det, syms, fields, evm_lin, hdr_ref = sync_common(
-        x, spec.frame_syms, max_frames, threshold, tables=tables, device=dev
+    sc = sync_common(
+        x, spec.frame_syms, max_frames, threshold, refine, timing_bank, equalize,
+        track_sfo, det_override=det_override, fine=fine,
+        return_peak_count=return_peak_count, return_hdr_ref=True, tables=tables, device=dev,
     )
-    return _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables)
+    det, syms, fields, evm_lin = sc[:4]
+    res = _finish_fixed(det, syms, fields, evm_lin, sc[-1], cfg, tables, track,
+                        noise_var_override)
+    if return_peak_count:
+        return res, sc[4]
+    return res
 
 
-def _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables) -> FrameResults:
+def _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables, track=True,
+                  noise_var=None) -> FrameResults:
     """Stage 5 and the result record, from the outputs of sync_common."""
     hdr_valid, user, plen, mod, inner, outer = fields
+    if hdr_ref is None:
+        # rebuild the TX header symbols from the DECODED header fields (user
+        # + len + config + CRC24 -> Golay -> QPSK: bit-exact when header_valid)
+        proto = torch.stack(
+            [(plen >> 8) & 0xFF, plen & 0xFF, mod, inner, outer], dim=-1
+        ).to(torch.uint8)
+        hdr_ref = _header_reference_symbols(crc.crc24_append(torch.cat([user, proto], dim=-1)))
     # absolute payload-tracker anchor: correlate the header against the TX
-    # header symbols rebuilt from the DECODED header (bit-exact when
-    # header_valid). Slope from the two 90-symbol header halves (long
-    # baseline), phase from the last 20 symbols (agile under fading).
+    # header symbols rebuilt from the DECODED header. Slope from the two
+    # 90-symbol header halves (long baseline), phase from the last 20
+    # symbols (agile under fading).
     h1 = fs.PREAMBLE_SYMS + fs.HEADER_SYMS
     h0_ = h1 - 180
     u1 = torch.sum(syms[..., h0_ : h0_ + 90] * torch.conj(hdr_ref[..., :90]), dim=-1)
@@ -832,7 +1128,8 @@ def _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables) -> FrameResu
     anchor = torch.angle(q2) + a_slope * 10.0  # extrapolated to h1
 
     payload, crc_ok = decode_payload_symbols(
-        syms, cfg, evm_lin, anchor, a_slope, tables
+        syms, cfg, track, evm_lin if noise_var is None else noise_var, anchor, a_slope,
+        tables=tables,
     )
     pay_valid = crc_ok & hdr_valid
 

@@ -31,6 +31,7 @@ class PhyTables:
     templates: torch.Tensor  # [5, 128] complex64 — CFO-shifted preamble templates
     delayed_templates: torch.Tensor  # [25, 128] complex64 — fine_cfo references
     timing_bank30: torch.Tensor  # [33, 30] float32 — matched-filter rows by tau
+    timing_bank65: torch.Tensor  # [65, 32] float32 — SFO-path rows by sampling instant
     preamble: torch.Tensor  # [64] complex64 — preamble symbols
     rrc_taps: torch.Tensor  # [29] float32 — TX pulse
     constellation: torch.Tensor | None = None  # [2**bps] complex64
@@ -48,6 +49,7 @@ def numpy_tables(cfg: FrameConfig | None = None) -> dict[str, np.ndarray]:
         "templates": detector.templates_time(),
         "delayed_templates": detector._delayed_templates(),
         "timing_bank30": framesync._timing_bank30(),
+        "timing_bank65": framesync._timing_bank65(),
         "preamble": msequence.preamble_symbols(),
         "rrc_taps": rrc.matched_taps(),
     }
@@ -61,7 +63,7 @@ def numpy_tables(cfg: FrameConfig | None = None) -> dict[str, np.ndarray]:
 
 _DTYPES = {
     "templates": np.complex64, "delayed_templates": np.complex64,
-    "timing_bank30": np.float32, "preamble": np.complex64,
+    "timing_bank30": np.float32, "timing_bank65": np.float32, "preamble": np.complex64,
     "rrc_taps": np.float32, "constellation": np.complex64,
     "interleave_perm": np.int64, "interleave_inv": np.int64,
 }

@@ -1,6 +1,6 @@
 """Where one receiver step spends its time on the GPU.
 
-    python3 -m liquiddsp_tpu_torch.profile_step [--sharded] [--out DIR]
+    python3 -m liquiddsp_tpu_torch.profile_step [--sharded] [--flexrx] [--out DIR]
 
 For both receiver configs at 64 x 65,536 samples it prints, with the card's
 name and power limit: the time of each stage (host clock around work that
@@ -10,8 +10,13 @@ device memory. With ``--sharded`` it profiles, after the block receiver and
 in the same process, the time-sharded receiver on the same number of samples
 as 8 channels x 524,288 in 8 time shards (the halo windows are one more
 stage), and counts the device launches of one Reed-Solomon decode at the
-shape a (10,0,2) step gives it. With ``--out`` it also writes these numbers
-as JSON.
+shape a (10,0,2) step gives it. With ``--flexrx`` it profiles the
+self-describing receiver on a mixed-config block (64 channels, a config each,
+payload 64, 12 frames a channel: every frame on the sample-clock-drift path)
+and a framesync_fixed step on 64 x 65,536 samples of 2650-symbol QAM16
+frames stretched by +-50 ppm (the sample-clock-drift path; the launches of
+its symbol-recovery stage are those of an SFO block). With ``--out`` it also
+writes these numbers as JSON.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from liquiddsp_tpu_torch import FrameConfig
+from liquiddsp_tpu_torch import config_space as cs
 from liquiddsp_tpu_torch.core.device import resolve_device
 from liquiddsp_tpu_torch.kernels.halo import halo_windows
 from liquiddsp_tpu_torch.ops.fec import rs
@@ -34,7 +40,8 @@ from liquiddsp_tpu_torch.parallel.mesh import make_mesh
 from liquiddsp_tpu_torch.phy import detector, framesync
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.tables import phy_tables
-from liquiddsp_tpu_torch.streams import long_stream, shard_slots, tiled_stream
+from liquiddsp_tpu_torch.runtime.blocks import FlexRx
+from liquiddsp_tpu_torch.streams import long_stream, shard_slots, stretched_stream, tiled_stream
 
 BATCH, BLOCK = 64, 65536
 SH_BATCH, SH_TOTAL, SH_NTIME = 8, 524288, 8  # the same samples as long channels
@@ -57,9 +64,36 @@ def _device_events(prof) -> list:
             and e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = False) -> dict:
+def _device_profile(fn) -> dict:
+    """One run of ``fn`` under torch.profiler: host-clock ms, device-busy ms,
+    device kernel launches and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t_prof = (time.perf_counter() - t0) * 1e3
+    evs = _device_events(prof)
+    dev_ms = sum(e.device_time_total for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
+    return {
+        "profiled_step_ms": t_prof, "device_busy_ms": dev_ms,
+        "device_busy_share_of_profiled_step": dev_ms / t_prof,
+        "device_kernel_launches": int(sum(e.count for e in evs)),
+        "top_device_kernels": [
+            {"name": e.key[:80], "ms": e.device_time_total / 1e3, "count": e.count} for e in top],
+    }
+
+
+def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = False,
+                   ppm: float = 0.0) -> dict:
+    """One receiver step of ``cfg``; ``ppm`` stretches the block's rows by
+    +-ppm (``streams.stretched_stream``)."""
     tables = phy_tables(cfg, dev)
     spec = fs.FrameSpec(cfg)
+    track = spec.frame_syms >= framesync.SFO_AUTO_SYMS  # framesync_fixed's "auto"
     stage_ms = {}
     if sharded:
         xs, _, _, _ = long_stream(cfg, snr_db, SH_BATCH, SH_TOTAL, gen, dev)
@@ -71,13 +105,18 @@ def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = Fa
         windows, stage_ms["halo windows"] = _timed(lambda: halo_windows(xs, SH_NTIME, f - 1))
         x = windows.reshape(SH_NTIME * SH_BATCH, t_local + f - 1)
     else:
-        x, _, _, k = tiled_stream(cfg, snr_db, BATCH, BLOCK, gen, dev)
+        if ppm:
+            x, _, _, k = stretched_stream(cfg, snr_db, ppm, BATCH, BLOCK, gen, dev)
+        else:
+            x, _, _, k = tiled_stream(cfg, snr_db, BATCH, BLOCK, gen, dev)
         step = lambda: framesync.framesync_fixed(x, cfg, k, device=dev)
         step()  # warm-up
 
     det, t_detect = _timed(lambda: detector.detect(x, k, fine=False, tables=tables, device=dev))
-    (det, syms), t_recover = _timed(
-        lambda: framesync.recover_candidates(x, det, spec.frame_syms, tables))
+    recover = lambda: framesync.recover_candidates(x, det, spec.frame_syms, tables,
+                                                   track_sfo=track)
+    (det, syms), t_recover = _timed(recover)
+    recover_launches = _device_profile(recover)["device_kernel_launches"]
     sc, t_sync = _timed(lambda: framesync.sync_symbols(syms, tables))
     syms2, fields, evm_lin, hdr_ref = sc
     _, t_payload = _timed(
@@ -86,30 +125,49 @@ def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = Fa
     _, t_step = _timed(step)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        t_prof = (time.perf_counter() - t0) * 1e3
-    evs = _device_events(prof)
-    dev_ms = sum(e.device_time_total for e in evs) / 1e3
-    top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
     return {
         "config": [cfg.modulation, cfg.inner_code, cfg.outer_code, cfg.payload_len],
         "path": "sharded_framesync" if sharded else "framesync_fixed",
-        "local_receiver_shape": list(x.shape),
+        "local_receiver_shape": list(x.shape), "sample_clock_offset_ppm": ppm,
+        "symbol_recovery": "sample-clock-drift path" if track else "recover kernel",
         "snr_db": snr_db, "max_frames": k,
         "stage_ms": {**stage_ms, "detect": t_detect, "extract+fine_cfo+recover": t_recover,
                      "eq+carrier+header": t_sync, "payload": t_payload},
+        "recover_stage_device_launches": recover_launches,
         "step_ms": t_step, "samples_per_s": BATCH * BLOCK / (t_step * 1e-3),
-        "profiled_step_ms": t_prof, "device_busy_ms": dev_ms,
-        "device_busy_share_of_profiled_step": dev_ms / t_prof,
-        "device_kernel_launches": int(sum(e.count for e in evs)),
-        "top_device_kernels": [
-            {"name": e.key[:80], "ms": e.device_time_total / 1e3, "count": e.count} for e in top],
+        **_device_profile(step),
+        "peak_device_memory_mb": peak_mb,
+    }
+
+
+def profile_flexrx(dev, payload_len: int = 64, seed: int = 7) -> dict:
+    """FlexRx on chip_smoke.py's P4 block: 64 channels x 65,536 samples, a
+    config each (``config_space.mixed_stream``), at max_payload_len
+    ``payload_len``: the front end alone, the whole block, the block with
+    the speculative decode of the commanded configs, and one block under the
+    profiler."""
+    cfgs, x, payloads = cs.mixed_stream(BATCH, BLOCK, payload_len, seed, dev)
+    n_frames = payloads.shape[1]
+    rx = FlexRx(max_payload_len=payload_len, max_frames_per_block=n_frames + 2, device=dev)
+    infos = rx.work(x)  # warm-up (builds the kernels at first use)
+    ok, false = cs.frame_outcomes(infos, cfgs, payloads, payload_len)
+    _, t_front = _timed(lambda: framesync.sync_common(
+        x, rx.n_syms, rx.max_frames, rx.threshold, tables=rx.tables, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    _, t_step = _timed(lambda: rx.work(x))
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    expected = [(m, i, o, payload_len) for m, i, o in cfgs]
+    _, t_spec = _timed(lambda: rx.work_complete(rx.work_submit(x, expected_configs=expected)))
+    return {
+        "path": "FlexRx", "shape": list(x.shape), "max_payload_len": payload_len,
+        "symbol_buffer": rx.n_syms, "slots_per_row": rx.max_frames,
+        "config_groups": len(set(cfgs)),
+        "frames_sent": int(ok.size), "frames_decoded_bit_exact": int(ok.sum()),
+        "false_crc_passes": int(false.sum()),
+        "stage_ms": {"front end (sync_common)": t_front},
+        "step_ms": t_step, "speculative_step_ms": t_spec,
+        "samples_per_s": BATCH * BLOCK / (t_step * 1e-3),
+        **_device_profile(lambda: rx.work(x)),
         "peak_device_memory_mb": peak_mb,
     }
 
@@ -140,6 +198,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sharded", action="store_true",
                     help="also profile the time-sharded receiver and one Reed-Solomon decode")
+    ap.add_argument("--flexrx", action="store_true",
+                    help="also profile FlexRx on a mixed-config block and an SFO block")
     ap.add_argument("--out", type=Path, default=None, help="directory for profile_step.json")
     args = ap.parse_args()
     dev = resolve_device(None)
@@ -154,6 +214,9 @@ def main() -> None:
     if args.sharded:
         report["sharded"] = [profile_config(c, snr, dev, gen, sharded=True) for c, snr in cases]
         report["rs_decode"] = rs_decode_launches(dev, gen)
+    if args.flexrx:
+        report["flexrx"] = profile_flexrx(dev)
+        report["sfo"] = profile_config(FrameConfig(8, 0, 0, 1200), 28.0, dev, gen, ppm=50.0)
     print(json.dumps(report, indent=1))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)

@@ -6,6 +6,7 @@ import torch
 
 from liquiddsp_tpu_torch.core.config import FrameConfig
 from liquiddsp_tpu_torch.core.device import resolve_device
+from liquiddsp_tpu_torch.ops import resample
 from liquiddsp_tpu_torch.phy import framegen
 
 
@@ -41,6 +42,32 @@ def tiled_stream(
     )
     x = (x + sigma * noise).to(torch.complex64).contiguous()
     return x, payloads, n_frames, block // period + 2
+
+
+def stretched_stream(
+    cfg: FrameConfig,
+    snr_db: float,
+    ppm: float,
+    batch: int,
+    block: int,
+    gen: torch.Generator,
+    device: torch.device | str | None = None,
+):
+    """``tiled_stream``'s rows with a sample-clock offset: even rows
+    resampled by +``ppm`` and odd rows by -``ppm`` (frames stretched or
+    squeezed by ``ops.resample.arbitrary``), then AWGN at ``snr_db``. Same
+    returns as ``tiled_stream``."""
+    dev = resolve_device(device)
+    x, payloads, n_frames, max_frames = tiled_stream(cfg, float("inf"), batch, block, gen, dev)
+    for rows, sign in ((slice(0, None, 2), 1.0), (slice(1, None, 2), -1.0)):
+        x[rows] = resample.arbitrary(x[rows], 1.0 / (1.0 + sign * ppm * 1e-6), block)
+    frames = framegen.framegen(payloads, cfg, device=dev)
+    sigma = torch.sqrt(torch.mean(torch.abs(frames) ** 2) / (2 * 10 ** (snr_db / 10)))
+    noise = torch.complex(
+        torch.randn((batch, block), generator=gen, device=dev),
+        torch.randn((batch, block), generator=gen, device=dev),
+    )
+    return (x + sigma * noise).contiguous(), payloads, n_frames, max_frames
 
 
 def _period(cfg: FrameConfig) -> int:

@@ -176,7 +176,8 @@ def test_stage_payload_decode_on_reference_symbols(case, staged):
         sc[1], case.jcfg, noise_var=sc[3], anchor=jnp.asarray(anchor),
         anchor_slope=jnp.asarray(slope))
     pt, okt = tsync.decode_payload_symbols(
-        t(np.asarray(sc[1])), case.tcfg, t(np.asarray(sc[3])), t(anchor), t(slope), case.tables)
+        t(np.asarray(sc[1])), case.tcfg, noise_var=t(np.asarray(sc[3])), anchor=t(anchor),
+        anchor_slope=t(slope), tables=case.tables)
     m = np.asarray(sc[0].mask)
     np.testing.assert_array_equal(np.asarray(okj)[m], okt.numpy()[m])
     assert okt.numpy()[m].all()

@@ -24,7 +24,9 @@ import liquiddsp_tpu_torch.parallel.halo, liquiddsp_tpu_torch.utils.metrics
 import liquiddsp_tpu_torch.runtime.distributed_stream, liquiddsp_tpu_torch.ops.fec.rs
 import liquiddsp_tpu_torch.ops.fec.block, liquiddsp_tpu_torch.ops.modem
 import liquiddsp_tpu_torch.streams, liquiddsp_tpu_torch.dryrun
-import liquiddsp_tpu_torch.profile_step
+import liquiddsp_tpu_torch.profile_step, liquiddsp_tpu_torch.config_space
+import liquiddsp_tpu_torch.runtime.blocks, liquiddsp_tpu_torch.runtime.bus
+import liquiddsp_tpu_torch.runtime.sim, liquiddsp_tpu_torch.ops.resample
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "liquiddsp_tpu" or m.startswith("liquiddsp_tpu.")]
 print("LEAKED", bad)
@@ -53,7 +55,9 @@ def _no_gpu():
 
 
 @pytest.mark.parametrize("entry", ["framegen", "detect", "framesync_fixed", "phy_tables",
-                                   "make_mesh", "long_stream", "dryrun_sharded"])
+                                   "make_mesh", "long_stream", "dryrun_sharded", "FlexTx",
+                                   "FlexRx", "FrameDetectorCC", "ChannelModel",
+                                   "config_space_loopback"])
 def test_entry_points_raise_without_gpu(entry):
     """device=None means the GPU; without one the call raises instead of
     running on the CPU."""
@@ -61,7 +65,9 @@ def test_entry_points_raise_without_gpu(entry):
     import liquiddsp_tpu_torch
     from liquiddsp_tpu_torch import FrameConfig, streams
     from liquiddsp_tpu_torch.parallel import mesh
+    from liquiddsp_tpu_torch.config_space import config_space_loopback
     from liquiddsp_tpu_torch.phy import detector, framegen, framesync, tables
+    from liquiddsp_tpu_torch.runtime import blocks, sim
 
     cfg = FrameConfig(1, 0, 0, 64)
     x = torch.zeros((1, 2048), dtype=torch.complex64)
@@ -73,6 +79,11 @@ def test_entry_points_raise_without_gpu(entry):
         "make_mesh": lambda: mesh.make_mesh(n_time=4),
         "long_stream": lambda: streams.long_stream(cfg, 20.0, 1, 4096, torch.Generator()),
         "dryrun_sharded": lambda: liquiddsp_tpu_torch.dryrun_sharded(2),
+        "FlexTx": lambda: blocks.FlexTx(),
+        "FlexRx": lambda: blocks.FlexRx(),
+        "FrameDetectorCC": lambda: blocks.FrameDetectorCC(),
+        "ChannelModel": lambda: sim.ChannelModel(),
+        "config_space_loopback": lambda: config_space_loopback(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -109,10 +120,10 @@ def test_sharded_receiver_raises_on_a_gpu_mesh_without_gpu_and_runs_on_cpu():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What still waits raises: the sample-clock-drift path for frames of 2200
-    symbols and more, and a mesh over several devices. What this package has
-    ported since no longer does: the differential modems, Reed-Solomon, the
-    Hamming and SEC-DED codes."""
+    """What still waits raises: a mesh over several devices. What this
+    package has ported since no longer does: the sample-clock-drift path for
+    frames of 2200 symbols and more, the differential modems, Reed-Solomon,
+    the Hamming and SEC-DED codes."""
     from liquiddsp_tpu_torch import FrameConfig
     from liquiddsp_tpu_torch.ops import modem
     from liquiddsp_tpu_torch.ops.fec import registry
@@ -121,8 +132,8 @@ def test_unported_paths_raise_not_implemented():
 
     long_cfg = FrameConfig(0, 1, 1, 64)  # BPSK + V27 + Golay: 2416 symbols
     x = torch.zeros((1, 8192), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="sample-clock-drift"):
-        framesync.framesync_fixed(x, long_cfg, 1, device="cpu")
+    res = framesync.framesync_fixed(x, long_cfg, 1, device="cpu")
+    assert res.symbols.shape == (1, 1, 2416) and not bool(res.mask.any())
     with pytest.raises(NotImplementedError, match="A.4"):
         make_mesh(devices=["cpu", "meta"])
 

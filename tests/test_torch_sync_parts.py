@@ -148,9 +148,11 @@ def test_decode_header_multi_matches():
 
 
 def test_long_frames_raise_until_sfo_path_is_ported():
-    from liquiddsp_tpu_torch.phy.tables import phy_tables
-
-    det = None
-    with pytest.raises(NotImplementedError):
-        tsync.recover_candidates(torch.zeros((1, 64), dtype=torch.complex64), det, 2200,
-                                 phy_tables(None, "cpu"))
+    """The sample-clock-drift path is ported: a buffer of SFO_AUTO_SYMS
+    symbols takes it ("auto") instead of raising, and hands back finite
+    symbols of the buffer's length."""
+    x = torch.zeros((1, 8192), dtype=torch.complex64)
+    det, syms, fields, evm = tsync.sync_common(x, tsync.SFO_AUTO_SYMS, 2, device="cpu")
+    assert syms.shape == (1, 2, tsync.SFO_AUTO_SYMS) and syms.dtype == torch.complex64
+    assert bool(torch.isfinite(torch.view_as_real(syms)).all())
+    assert not bool(det.mask.any()) and not bool(fields[0].any())

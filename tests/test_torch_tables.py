@@ -72,6 +72,7 @@ def test_phy_tables_equal_the_reference_tables(cfg):
         "templates": jdet.templates_time(),
         "delayed_templates": jdet._delayed_templates(),
         "timing_bank30": jsync._timing_bank30(),
+        "timing_bank65": jsync._timing_bank65(),
         "preamble": jmseq.preamble_symbols(),
         "rrc_taps": jrrc.matched_taps(),
         "constellation": jmodem.constellation(cfg[0]),
