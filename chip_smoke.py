@@ -65,13 +65,32 @@ Phases, each fatal on failure:
    max_payload_len 64 (the SFO path for every frame) and again with
    expected_configs: the same infos, at least 99 % of the 768 frames, no
    false CRC pass, two channels equal to a CPU run, step time.
+12. (P5) the continuous streaming receiver at the reference bench's
+   streaming shape: for both receiver configs, 64 channels x 10 chunks of
+   65,536 (a payload a frame) through StreamingRx with the bench's slot count:
+   run (every whole frame at most once, at least the block path's share,
+   bit-exact), superstep of 5 chunks and push in 4,093-sample pieces + flush
+   and native ingest (NativeChunkSource, channels interleaved) identical to
+   run by start; run_adaptive with the default provisioning on the stream
+   tiled 3 times (the frame set of run; the settled bucket printed), again
+   from the settled bucket, and on a burst stream (back-to-back frames in
+   chunk 7: at least one group decoded again, the frame set of run).
+13. (P6) the closed adaptation loop at bench/adapt_loop.py's defaults (64
+   channels, payload 32, 15 dB, 50 generations, epsilon_greedy), pipelined
+   (twice: the same decisions) and unpipelined: packets/s, stage split,
+   configs visited; payload_exact == payload_valid; a CPU engine fed the
+   recorded feedback decides alike in every generation.
+14. (P7) the loop on the engine's dynamic noise schedule (nonstationary, 40
+   generations, unpipelined, twice), with P6's checks.
 
 Every step of every path is driven with the kernels' launch counters set to 0
 just before and read just after, and fails unless each kernel of that path
-was launched exactly as often as the path demands: once a block for the
-correlator and extract, once a block on the static path for recover (never
-on the SFO path), once a config group with an inner code for the Viterbi
-kernel (the speculative groups of P4 counted), once a sharded step for halo.
+was launched exactly as often as the path demands: once a block (a
+streaming window, a loop generation) for the correlator and extract, once a
+block on the static path for recover (never on the SFO path), once a config
+group with an inner code for the Viterbi kernel (the speculative groups of
+P4 counted; in the loop, between the speculative groups and those plus the
+decoded header groups), once a sharded step for halo.
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -114,9 +133,19 @@ from liquiddsp_tpu_torch.phy import detector
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.framesync import SFO_AUTO_SYMS, framesync_fixed
 from liquiddsp_tpu_torch.phy.tables import phy_tables
+from liquiddsp_tpu_torch.adapt_loop import adapt_loop, block_samples, channel_block
+from liquiddsp_tpu_torch.engine.cognitive_engine import CognitiveEngineBlock
 from liquiddsp_tpu_torch.runtime.blocks import FlexRx
 from liquiddsp_tpu_torch.runtime.distributed_stream import ShardedStreamingRx
-from liquiddsp_tpu_torch.streams import long_stream, shard_slots, stretched_stream, tiled_stream
+from liquiddsp_tpu_torch.runtime.native import NativeChunkSource
+from liquiddsp_tpu_torch.runtime.stream import StreamingRx, split_results
+from liquiddsp_tpu_torch.streams import (
+    burst_stream,
+    long_stream,
+    shard_slots,
+    stretched_stream,
+    tiled_stream,
+)
 from liquiddsp_tpu_torch.utils.metrics import LinkMetrics
 
 BATCH, BLOCK = 64, 65536
@@ -135,6 +164,11 @@ P1_PAYLOAD, P2_PAYLOAD = 32, 256
 P3_CFG, P3_SNR, P3_PPM = FrameConfig(8, 0, 0, 1200), 28.0, 50.0
 # P4: one config a channel at payload 64 (12 frames a channel)
 P4_PAYLOAD, P4_SEED = 64, 7
+# P5: the reference bench's streaming shape (bench.py bench_streaming):
+# 64 channels, chunks of 65,536, 10 chunks; run_adaptive on it tiled 3 times
+P5_CHUNKS, P5_PER_LAUNCH, P5_TILES, P5_PUSH = 10, 5, 3, 4093
+# P6-P7: bench/adapt_loop.py's defaults; P7 its dynamic schedule
+P6_ITERS, P6_SNR, P6_PAYLOAD, P7_ITERS = 50, 15.0, 32, 40
 # published peaks of one H100 SXM at its full power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -563,6 +597,17 @@ def receiver_lam(frames: int, payload_len: int, inner: int, outer: int,
     return full.reshape(frames, steps, 2)
 
 
+def check_viterbi_lam(kernels, label, lam: torch.Tensor) -> None:
+    """The Viterbi kernel against its plain version (bit-exact) at ``lam``."""
+    got = viterbi(lam)
+    torch.cuda.synchronize()
+    n_diff = int((got != viterbi_ref(lam)).sum())
+    if n_diff:
+        fail(f"viterbi differs from the plain version in {n_diff} bits at {label} lam {list(lam.shape)}")
+    entry = next(e for e in kernels if e["name"] == "viterbi")
+    entry.setdefault("also_checked", []).append(f"{label}: lam {list(lam.shape)}")
+
+
 def check_viterbi_shapes(kernels, label, frames: int, payload_len: int, gen) -> None:
     """The Viterbi kernel against its plain version (bit-exact) at the
     trellises a receiver path gives it: every outer code's message length at
@@ -666,12 +711,22 @@ def counted(what: str, want: dict, step):
     """Drive one step of a path with the kernels' launch counters set to 0
     just before and read just after; fail unless each kernel was launched
     exactly as ``want`` says. Returns (the step's result, the counts)."""
+    return counted_by(what, lambda _: want, step)
+
+
+def counted_by(what: str, want_of, step):
+    """``counted`` for a step whose launches follow from what it did:
+    ``want_of(result)`` gives the demanded counts, an exact number or an
+    inclusive (least, most) range for each kernel."""
     torch.cuda.synchronize()
     _cuda.reset_launches()
     res = step()
     torch.cuda.synchronize()
     got = dict(_cuda.LAUNCHES)
-    if got != want:
+    want = want_of(res)
+    ok = got.keys() == want.keys() and all(
+        w[0] <= got[k] <= w[1] if isinstance(w, tuple) else got[k] == w for k, w in want.items())
+    if not ok:
         fail(f"{what} launched {got}, expected {want}")
     return res, got
 
@@ -986,6 +1041,232 @@ def flexrx_run(cfgs, block, card: str) -> dict:
     return {"P4 FlexRx": got, "P4 FlexRx speculative": got_s}
 
 
+# ---------------------------------------------------------------------------
+# phases P5-P7: the continuous streaming receiver and the adaptation loop
+# ---------------------------------------------------------------------------
+
+
+def times_launches(per_step: dict, n: int) -> dict:
+    return {k: v * n for k, v in per_step.items()}
+
+
+class Joined:
+    """Per-chunk results of one stream laid side by side: fields [B, n*K],
+    ``start`` absolute (epoch + start, int64)."""
+
+    def __init__(self, results):
+        cat = lambda name: torch.cat([getattr(r, name) for r in results], dim=1)
+        for name in COMPARED:
+            setattr(self, name, cat(name))
+        self.start = torch.cat([r.start.to(torch.int64) + r.epoch for r in results], dim=1)
+
+
+def frame_set(results) -> set:
+    """{(row, absolute start, payload bytes)} of the payload-valid slots."""
+    j = Joined(results)
+    v = j.payload_valid.cpu()
+    rows, cols = torch.nonzero(v, as_tuple=True)
+    st, pay = j.start.cpu(), j.payload.cpu().numpy()
+    return {(int(b), int(st[b, k]), pay[b, k].tobytes()) for b, k in zip(rows.tolist(), cols.tolist())}
+
+
+def wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def streaming_p5(cfg, snr, share, stream, card) -> dict:
+    """P5 for one config: StreamingRx over P5_CHUNKS chunks of [64, 65,536]
+    through run, superstep, push and native ingest, then run_adaptive on the
+    stream tiled P5_TILES times and on a burst stream. Returns the launch
+    counts of each."""
+    name = config_name(cfg)
+    x, payloads, starts, whole = stream
+    k = shard_slots(cfg, BLOCK)  # the bench's (chunk_len + f - 1) // period + 2
+    per_step = block_launches(cfg, 0)
+    mk = lambda **kw: StreamingRx(cfg, BATCH, BLOCK, device=DEV, **kw)
+    launches = {}
+
+    rx = mk(max_frames_per_chunk=k)
+    (ref, t_run), got = counted(f"P5 {name} run", times_launches(per_step, P5_CHUNKS),
+                                lambda: wall(lambda: rx.run(x)))
+    launches[f"P5 {name} run"] = got
+    j = Joined(ref)
+    n_ok, expected, _ = check_stream_frames(
+        f"P5 {name} run", j.payload_valid, j.start, j.payload, payloads, starts, whole, share)
+    ref_sorted = by_start(j)
+
+    rx = mk(max_frames_per_chunk=k)
+    sup, t_sup = [], 0.0
+    for g in range(0, P5_CHUNKS, P5_PER_LAUNCH):
+        (res, dt), got = counted(f"P5 {name} superstep", times_launches(per_step, P5_PER_LAUNCH),
+                                 lambda: wall(lambda: rx.superstep(x[:, g * BLOCK : (g + P5_PER_LAUNCH) * BLOCK])))
+        if res.mask.shape != (P5_PER_LAUNCH, BATCH, k):
+            fail(f"P5 {name}: a superstep's mask has shape {tuple(res.mask.shape)}")
+        sup.extend(split_results(res, P5_PER_LAUNCH))
+        t_sup += dt
+    launches[f"P5 {name} superstep x{P5_PER_LAUNCH}"] = got
+    same_results(f"P5 {name} superstep against run", by_start(Joined(sup)), ref_sorted)
+
+    rx = mk(max_frames_per_chunk=k)
+    host = x.cpu().numpy()
+
+    def pushed():
+        out = []
+        for pos in range(0, host.shape[1], P5_PUSH):
+            out.extend(rx.push(host[:, pos : pos + P5_PUSH]))
+        tail = rx.flush()
+        return out + ([tail] if tail is not None else [])
+
+    (res, t_push), _ = counted(f"P5 {name} push", times_launches(per_step, P5_CHUNKS),
+                               lambda: wall(pushed))
+    same_results(f"P5 {name} push {P5_PUSH} + flush against run", by_start(Joined(res)), ref_sorted)
+
+    # native ingest: the channels interleaved sample by sample, as a
+    # multi-channel receiver delivers them, through the ring in whole chunks
+    rx = mk(max_frames_per_chunk=k)
+    inter = np.ascontiguousarray(host.T).reshape(-1)
+
+    def native():
+        src = NativeChunkSource(inter, chunk_len=BLOCK * BATCH, capacity_chunks=2)
+        out = [rx.step(torch.from_numpy(c.reshape(BLOCK, BATCH).T)) for c in src.chunks()]
+        src.stop()
+        return out
+
+    (res, t_native), _ = counted(f"P5 {name} native ingest", times_launches(per_step, P5_CHUNKS),
+                                 lambda: wall(native))
+    if len(res) != P5_CHUNKS:
+        fail(f"P5 {name}: native ingest gave {len(res)} chunks")
+    same_results(f"P5 {name} native ingest against run", by_start(Joined(res)), ref_sorted)
+    del host, inter
+
+    # run_adaptive with the default (worst-case) provisioning on the stream
+    # tiled: it starts at the smallest bucket, so its first call decodes
+    # groups again, and settles
+    rx_ad = mk()
+    x_long = x.repeat(1, P5_TILES)
+    n_long = P5_TILES * P5_CHUNKS
+
+    def adaptive(stream, n_chunks, label):
+        """run_adaptive on ``stream``: each chunk's window launches the
+        path's kernels once, and once more for each group decoded again."""
+        before = rx_ad.adaptive_redos
+        want = lambda _: times_launches(
+            per_step, n_chunks + P5_PER_LAUNCH * (rx_ad.adaptive_redos - before))
+        (res, dt), got = counted_by(label, want, lambda: wall(
+            lambda: rx_ad.run_adaptive(stream, P5_PER_LAUNCH)))
+        return res, dt, got, rx_ad.adaptive_redos - before
+
+    ad, t_ad, launches[f"P5 {name} run_adaptive"], redos_first = adaptive(
+        x_long, n_long, f"P5 {name} run_adaptive")
+    settled = rx_ad._adaptive_k
+    total = x.shape[1]
+    tiled_truth = (payloads.repeat(1, P5_TILES, 1),
+                   torch.cat([starts + t * total for t in range(P5_TILES)], dim=1), whole.repeat(1, P5_TILES))
+    ja = Joined(ad)
+    n_tiles_ok, n_tiles, _ = check_stream_frames(
+        f"P5 {name} run_adaptive", ja.payload_valid, ja.start, ja.payload, *tiled_truth, share)
+    if frame_set(ad) != frame_set(mk(max_frames_per_chunk=k).run(x_long)):
+        fail(f"P5 {name}: run_adaptive decoded another frame set than run")
+    # a second call on the same stream starts at the settled bucket
+    rx_ad.reset()
+    ad2, t_ad2, _, redos_settled = adaptive(x_long, n_long, f"P5 {name} run_adaptive, settled")
+    if frame_set(ad2) != frame_set(ad):
+        fail(f"P5 {name}: the settled run_adaptive decoded another frame set")
+    del x_long, ad, ad2, ja
+
+    # a burst above the settled bucket in one group: decoded again, frames unchanged
+    bx, bpay, bstarts, bwhole = burst_stream(cfg, snr, BATCH, P5_CHUNKS * BLOCK, (7 * BLOCK, 8 * BLOCK),
+                                             torch.Generator(DEV).manual_seed(5), DEV)
+    rx_ad.reset()
+    burst, _, _, redos_burst = adaptive(bx, P5_CHUNKS, f"P5 {name} run_adaptive burst")
+    if redos_burst < 1:
+        fail(f"P5 {name}: the burst decoded no group again")
+    jb = Joined(burst)
+    nb_ok, nb, _ = check_stream_frames(f"P5 {name} burst", jb.payload_valid, jb.start, jb.payload,
+                                       bpay, bstarts, bwhole, share)
+    if frame_set(burst) != frame_set(mk().run(bx)):
+        fail(f"P5 {name}: the burst's run_adaptive decoded another frame set than run")
+    print(
+        f"P5 StreamingRx {name} at {snr:g} dB, {P5_CHUNKS} chunks of {BATCH} x {BLOCK} "
+        f"(window {BLOCK + rx.overlap}, {k} slots): run {n_ok}/{expected} whole frames at most once and "
+        f"bit-exact, step {t_run / P5_CHUNKS * 1e3:.2f} ms ({BATCH * BLOCK * P5_CHUNKS / t_run:.4g} samples/s); "
+        f"superstep x{P5_PER_LAUNCH} identical, {t_sup / P5_CHUNKS * 1e3:.2f} ms a chunk; "
+        f"push {P5_PUSH} + flush identical, {t_push / P5_CHUNKS * 1e3:.2f} ms a chunk; "
+        f"native ingest identical, {t_native / P5_CHUNKS * 1e3:.2f} ms a chunk; "
+        f"run_adaptive on {P5_TILES} tiles ({n_long} chunks, default {rx_ad.max_frames} slots): "
+        f"{n_tiles_ok}/{n_tiles} whole frames = run's, settled bucket {settled}, buckets run {sorted(rx_ad.adaptive_buckets)}, "
+        f"groups decoded again {redos_first} (first call, {t_ad / n_long * 1e3:.2f} ms a chunk) and "
+        f"{redos_settled} (settled, {t_ad2 / n_long * 1e3:.2f} ms a chunk); burst of back-to-back frames "
+        f"in chunk 7: {redos_burst} group(s) decoded again, {nb_ok}/{nb} frames, frame set = run's [{card}]")
+    return launches
+
+
+def loop_checks(label: str, out: dict, dynamic: bool) -> None:
+    """The loop's own checks: no false CRC pass, and a CPU engine fed the
+    recorded feedback makes the same decisions in every generation."""
+    if out["payload_exact"] != out["payload_valid"]:
+        fail(f"{label}: {out['payload_valid'] - out['payload_exact']} frames passed their CRC "
+             f"with bytes that were not sent")
+    if out["payload_valid"] < 1:
+        fail(f"{label}: no frame decoded")
+    ce = CognitiveEngineBlock(channel="nonstationary" if dynamic else "stationary", seed=0)
+    for g, (fbs, dec) in enumerate(zip(out["feedback"], out["decisions"])):
+        if dynamic:
+            ce.get_number()
+        if ce.handle_batch(fbs) != dec:
+            fail(f"{label}: a CPU engine fed the recorded feedback decides otherwise in generation {g}")
+
+
+def loop_want(out: dict) -> dict:
+    """One front end a generation (correlator, extract, recover: static path
+    at payload 32); the Viterbi kernel once a commanded config group with an
+    inner code (the speculative decode), and at most once more a decoded
+    header group with an inner code."""
+    n = len(out["commanded"])
+    spec = sum(len({c for c in cmd if c[1]}) for cmd in out["commanded"])
+    extra = sum(len({(f["modulation"], f["inner_code"], f["outer_code"]) for f in fbs
+                     if f["header_valid"] and f["inner_code"]}) for fbs in out["feedback"])
+    return {"correlator": n, "extract": n, "recover": n, "viterbi": (spec, spec + extra), "halo": 0}
+
+
+def loop_run(label: str, iters: int, pipeline: bool, dynamic: bool, card: str):
+    out, got = counted_by(label, loop_want, lambda: adapt_loop(
+        BATCH, iters, P6_SNR, P6_PAYLOAD, pipeline=pipeline, dynamic=dynamic, seed=0, device=DEV))
+    loop_checks(label, out, dynamic)
+    st = out["stage_s"]
+    print(f"{label}: {out['packets']} packets, {out['packets_per_sec']:.1f} packets/s, "
+          f"payload_valid {out['payload_valid']}, payload_exact {out['payload_exact']}, "
+          f"stages tx+channel {st['tx_channel']:.2f} s / rx {st['rx']:.2f} s / engine {st['engine']:.2f} s "
+          f"of {out['wall_s']:.2f} s, {out['configs_visited']} configs visited, "
+          f"final configs {out['final_configs'][:6]}{'...' if len(out['final_configs']) > 6 else ''}, "
+          f"launches {got}; a CPU engine fed the feedback decides alike [{card}]")
+    return out, got
+
+
+def same_decisions(label: str, a: dict, b: dict) -> None:
+    if a["decisions"] != b["decisions"] or a["feedback"] != b["feedback"]:
+        fail(f"{label}: a second run with the same seed decided otherwise")
+
+
+def loop_p6_p7(card: str) -> dict:
+    """P6: the loop at bench/adapt_loop.py's defaults, pipelined (twice: the
+    same decisions) and not. P7: the dynamic schedule, nonstationary, 40
+    generations unpipelined (twice)."""
+    launches = {}
+    a, launches["P6 loop pipelined"] = loop_run("P6 loop pipelined", P6_ITERS, True, False, card)
+    b, _ = loop_run("P6 loop pipelined, again", P6_ITERS, True, False, card)
+    same_decisions("P6 pipelined", a, b)
+    _, launches["P6 loop"] = loop_run("P6 loop unpipelined", P6_ITERS, False, False, card)
+    c, launches["P7 loop dynamic"] = loop_run("P7 loop dynamic, nonstationary", P7_ITERS, False, True, card)
+    d, _ = loop_run("P7 loop dynamic, again", P7_ITERS, False, True, card)
+    same_decisions("P7", c, d)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = card_line()
@@ -1025,6 +1306,13 @@ def main() -> None:
     p3_stream = stretched_stream(P3_CFG, P3_SNR, P3_PPM, BATCH, BLOCK, gen)
     p4_cfgs, *p4_block = cs.mixed_stream(BATCH, BLOCK, P4_PAYLOAD, P4_SEED, DEV)
     p4_frames = p4_block[1].shape[1]
+    # P5: the reference bench's streaming stream of each config; P6: one
+    # generation of the loop with a random config on every channel
+    p5_streams = [long_stream(cfg, snr, BATCH, P5_CHUNKS * BLOCK, gen) for cfg, snr, _ in CONFIGS]
+    rng6 = np.random.default_rng(6)
+    p6_cfgs = [ALL_CONFIGS[i] for i in rng6.integers(0, len(ALL_CONFIGS), BATCH)]
+    p6_x = channel_block(p6_cfgs, rng6.integers(0, 256, (BATCH, P6_PAYLOAD), dtype=np.uint8),
+                         P6_SNR, block_samples(P6_PAYLOAD), gen, DEV)
     torch.cuda.synchronize()
 
     # kernel shapes of the main path: the candidates the detector finds
@@ -1079,8 +1367,19 @@ def main() -> None:
     check_path_shapes(kernels, "P4 FlexRx payload 64 (SFO)", p4_block[0], max_syms(P4_PAYLOAD),
                       p4_frames + 2, gen, recover=False)
     for label, frames, payload_len in (("P1", 2, P1_PAYLOAD), ("P2", 2, P2_PAYLOAD),
-                                       ("P4", p4_frames, P4_PAYLOAD)):
+                                       ("P4", p4_frames, P4_PAYLOAD), ("P6", BATCH, P6_PAYLOAD)):
         check_viterbi_shapes(kernels, label, frames, payload_len, gen)
+    # P5: StreamingRx's windows [carry | chunk] = [64, 65,536 + overlap] with
+    # the bench's slot count, the Viterbi kernel at that many frames; P6:
+    # FlexRx blocks of the loop at payload 32 (static path), 2 slots a channel
+    for (cfg, _, _), stream in zip(CONFIGS, p5_streams):
+        ov, k5 = ov_of(cfg), shard_slots(cfg, BLOCK)
+        check_path_shapes(kernels, "P5 StreamingRx " + config_name(cfg),
+                          stream[0][:, BLOCK - ov : 2 * BLOCK].contiguous(), syms_of(cfg), k5, gen)
+        if cfg.inner_code:
+            check_viterbi_lam(kernels, "P5 StreamingRx " + config_name(cfg),
+                              receiver_lam(BATCH * k5, cfg.payload_len, cfg.inner_code, cfg.outer_code, gen))
+    check_path_shapes(kernels, "P6 loop FlexRx payload 32", p6_x, max_syms(P6_PAYLOAD), 2, gen)
     print(f"kernels: all five agree with their plain versions at the shapes of every path "
           f"({time.perf_counter() - t_start:.0f} s)")
     if "--kernels-only" in sys.argv[1:]:
@@ -1141,6 +1440,13 @@ def main() -> None:
     print(f"P4 configs, one a channel: {p4_cfgs}")
     launches.update(flexrx_run(p4_cfgs, p4_block, card))
     print(f"P4 done ({time.perf_counter() - t_start:.0f} s)")
+    del p4_block, p3_stream
+    for (cfg, snr, share), stream in zip(CONFIGS, p5_streams):
+        launches.update(streaming_p5(cfg, snr, share, stream, card))
+    del p5_streams
+    print(f"P5 done ({time.perf_counter() - t_start:.0f} s)")
+    launches.update(loop_p6_p7(card))
+    print(f"P6 and P7 done ({time.perf_counter() - t_start:.0f} s)")
 
     for k in kernels:
         k["launches_by_config"] = {label: d[k["name"]] for label, d in launches.items()}

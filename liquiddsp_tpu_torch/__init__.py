@@ -10,9 +10,13 @@ Ported so far: the single-device block receiver, TX ``phy.framegen.framegen``
 -> RX ``phy.framesync.framesync_fixed``, and the time-sharded receiver on one
 device: ``parallel.halo.sharded_framesync``, its streaming wrapper
 ``runtime.distributed_stream.ShardedStreamingRx`` and
-``utils.metrics.LinkMetrics``. Entry points run on the GPU unless the caller
-passes ``device="cpu"``. ``dryrun_sharded(n_time)`` is the quick proof of
-the sharded path.
+``utils.metrics.LinkMetrics``; the self-describing receiver
+``runtime.blocks.FlexRx``; the continuous streaming receiver
+``runtime.stream.StreamingRx`` with ``runtime.supervisor`` and
+``runtime.native``; the cognitive engine ``engine`` (host code) and the
+closed adaptation loop ``adapt_loop.adapt_loop``. Entry points run on the
+GPU unless the caller passes ``device="cpu"``. ``dryrun_sharded(n_time)`` is
+the quick proof of the sharded path.
 """
 
 from liquiddsp_tpu_torch.core.config import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Where one receiver step spends its time on the GPU.
 
-    python3 -m liquiddsp_tpu_torch.profile_step [--sharded] [--flexrx] [--out DIR]
+    python3 -m liquiddsp_tpu_torch.profile_step [--sharded] [--flexrx] [--stream] [--out DIR]
 
 For both receiver configs at 64 x 65,536 samples it prints, with the card's
 name and power limit: the time of each stage (host clock around work that
@@ -15,8 +15,11 @@ self-describing receiver on a mixed-config block (64 channels, a config each,
 payload 64, 12 frames a channel: every frame on the sample-clock-drift path)
 and a framesync_fixed step on 64 x 65,536 samples of 2650-symbol QAM16
 frames stretched by +-50 ppm (the sample-clock-drift path; the launches of
-its symbol-recovery stage are those of an SFO block). With ``--out`` it also
-writes these numbers as JSON.
+its symbol-recovery stage are those of an SFO block). With ``--stream`` it
+profiles the continuous streaming receiver (``StreamingRx``: one step and one
+superstep of 5 chunks of 64 x 65,536, both configs) and ten generations of
+the closed adaptation loop at its defaults (64 channels, payload 32, 15 dB).
+With ``--out`` it also writes these numbers as JSON.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from liquiddsp_tpu_torch import FrameConfig
 from liquiddsp_tpu_torch import config_space as cs
+from liquiddsp_tpu_torch.adapt_loop import adapt_loop
 from liquiddsp_tpu_torch.core.device import resolve_device
 from liquiddsp_tpu_torch.kernels.halo import halo_windows
 from liquiddsp_tpu_torch.ops.fec import rs
@@ -41,6 +45,7 @@ from liquiddsp_tpu_torch.phy import detector, framesync
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.tables import phy_tables
 from liquiddsp_tpu_torch.runtime.blocks import FlexRx
+from liquiddsp_tpu_torch.runtime.stream import StreamingRx
 from liquiddsp_tpu_torch.streams import long_stream, shard_slots, stretched_stream, tiled_stream
 
 BATCH, BLOCK = 64, 65536
@@ -172,6 +177,51 @@ def profile_flexrx(dev, payload_len: int = 64, seed: int = 7) -> dict:
     }
 
 
+def profile_stream(cfg: FrameConfig, snr_db: float, dev, gen, per_launch: int = 5) -> dict:
+    """StreamingRx at the reference bench's streaming shape: one step (the
+    median over 10 chunks) and one superstep of ``per_launch`` chunks, each
+    also under the profiler."""
+    n = 2 * per_launch
+    x, _, _, _ = long_stream(cfg, snr_db, BATCH, n * BLOCK, gen, dev)
+    k = shard_slots(cfg, BLOCK)  # the bench's (chunk_len + f - 1) // period + 2
+    rx = StreamingRx(cfg, BATCH, BLOCK, max_frames_per_chunk=k, device=dev)
+    rx.run(x)  # warm-up (builds the kernels at first use)
+    rx.reset()
+    chunks = iter(range(n))
+    _, t_step = _timed(lambda: rx.step(x[:, next(chunks) * BLOCK :][:, :BLOCK]), reps=n)
+    rx.reset()
+    step_prof = _device_profile(lambda: rx.step(x[:, :BLOCK]))
+    rx.reset()
+    _, t_super = _timed(lambda: rx.superstep(x[:, : per_launch * BLOCK]), reps=3)
+    rx.reset()
+    super_prof = _device_profile(lambda: rx.superstep(x[:, : per_launch * BLOCK]))
+    return {
+        "config": [cfg.modulation, cfg.inner_code, cfg.outer_code, cfg.payload_len],
+        "window": [BATCH, BLOCK + rx.overlap], "max_frames": k, "snr_db": snr_db,
+        "step_ms": t_step, "samples_per_s": BATCH * BLOCK / (t_step * 1e-3),
+        "step_profile": step_prof,
+        f"superstep_{per_launch}_ms": t_super,
+        f"superstep_{per_launch}_profile": super_prof,
+    }
+
+
+def profile_loop(dev, iters: int = 10) -> dict:
+    """The closed adaptation loop at its defaults for ``iters`` generations,
+    unprofiled and under the profiler (after a warm-up run)."""
+    adapt_loop(iters=iters, device=dev)
+    out = adapt_loop(iters=iters, device=dev)
+    prof = _device_profile(lambda: adapt_loop(iters=iters, device=dev))
+    return {
+        "batch": 64, "iters": iters, "payload_len": 32, "snr_db": 15.0,
+        "packets_per_sec": out["packets_per_sec"], "stage_s": out["stage_s"],
+        "configs_visited": out["configs_visited"],
+        "generation_ms": out["wall_s"] / iters * 1e3,
+        "profile": prof,
+        "device_kernel_launches_per_generation": prof["device_kernel_launches"] / iters,
+        "device_busy_ms_per_generation": prof["device_busy_ms"] / iters,
+    }
+
+
 def rs_decode_launches(dev, gen) -> dict:
     """Device launches and time of one Reed-Solomon decode of 64 x 36 blocks
     of 67 + 32 bytes (the slots of one (10,0,2) sharded step), 4 byte errors a
@@ -200,6 +250,8 @@ def main() -> None:
                     help="also profile the time-sharded receiver and one Reed-Solomon decode")
     ap.add_argument("--flexrx", action="store_true",
                     help="also profile FlexRx on a mixed-config block and an SFO block")
+    ap.add_argument("--stream", action="store_true",
+                    help="also profile StreamingRx and the closed adaptation loop")
     ap.add_argument("--out", type=Path, default=None, help="directory for profile_step.json")
     args = ap.parse_args()
     dev = resolve_device(None)
@@ -217,6 +269,9 @@ def main() -> None:
     if args.flexrx:
         report["flexrx"] = profile_flexrx(dev)
         report["sfo"] = profile_config(FrameConfig(8, 0, 0, 1200), 28.0, dev, gen, ppm=50.0)
+    if args.stream:
+        report["stream"] = [profile_stream(c, snr, dev, gen) for c, snr in cases]
+        report["loop"] = profile_loop(dev)
     print(json.dumps(report, indent=1))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)

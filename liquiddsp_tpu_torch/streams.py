@@ -125,3 +125,40 @@ def long_stream(
     x = (x + sigma * noise).to(torch.complex64).contiguous()
     starts = lead[:, None] + period * torch.arange(n_slots, device=dev)[None, :]
     return x, payloads, starts, starts + f <= total
+
+
+def burst_stream(
+    cfg: FrameConfig,
+    snr_db: float,
+    batch: int,
+    total: int,
+    burst: tuple[int, int],
+    gen: torch.Generator,
+    device: torch.device | str | None = None,
+):
+    """``long_stream``'s tiling (a different payload for every frame, all rows
+    aligned at a 37-sample lead-in) except that frames starting in the
+    sample range ``burst = (begin, end)`` follow each other back to back,
+    16 samples apart: a burst of demand for a streaming receiver. Only whole
+    frames are placed. Same returns as ``long_stream``."""
+    dev = resolve_device(device)
+    f, period = framegen.frame_length(cfg), _period(cfg)
+    starts, s = [], 37
+    while s + f <= total:
+        starts.append(s)
+        s += f + 16 if burst[0] <= s < burst[1] else period
+    n = len(starts)
+    payloads = torch.randint(
+        0, 256, (batch, n, cfg.payload_len), generator=gen, device=dev, dtype=torch.int32
+    ).to(torch.uint8)
+    frames = framegen.framegen(payloads.reshape(batch * n, -1), cfg, device=dev).reshape(batch, n, f)
+    x = torch.zeros((batch, total), dtype=torch.complex64, device=dev)
+    for j, s in enumerate(starts):
+        x[:, s : s + f] = frames[:, j]
+    sigma = torch.sqrt(torch.mean(torch.abs(frames) ** 2) / (2 * 10 ** (snr_db / 10)))
+    noise = torch.complex(
+        torch.randn((batch, total), generator=gen, device=dev),
+        torch.randn((batch, total), generator=gen, device=dev),
+    )
+    starts_t = torch.as_tensor(starts, dtype=torch.int64, device=dev).expand(batch, n)
+    return (x + sigma * noise).contiguous(), payloads, starts_t, torch.ones_like(starts_t, dtype=torch.bool)

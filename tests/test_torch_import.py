@@ -27,6 +27,11 @@ import liquiddsp_tpu_torch.streams, liquiddsp_tpu_torch.dryrun
 import liquiddsp_tpu_torch.profile_step, liquiddsp_tpu_torch.config_space
 import liquiddsp_tpu_torch.runtime.blocks, liquiddsp_tpu_torch.runtime.bus
 import liquiddsp_tpu_torch.runtime.sim, liquiddsp_tpu_torch.ops.resample
+import liquiddsp_tpu_torch.runtime.stream, liquiddsp_tpu_torch.runtime.supervisor
+import liquiddsp_tpu_torch.runtime.native, liquiddsp_tpu_torch.adapt_loop
+import liquiddsp_tpu_torch.engine, liquiddsp_tpu_torch.engine.estimators
+import liquiddsp_tpu_torch.engine.store, liquiddsp_tpu_torch.engine.knowledge
+import liquiddsp_tpu_torch.engine.bandits, liquiddsp_tpu_torch.engine.cognitive_engine
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "liquiddsp_tpu" or m.startswith("liquiddsp_tpu.")]
 print("LEAKED", bad)
@@ -57,17 +62,18 @@ def _no_gpu():
 @pytest.mark.parametrize("entry", ["framegen", "detect", "framesync_fixed", "phy_tables",
                                    "make_mesh", "long_stream", "dryrun_sharded", "FlexTx",
                                    "FlexRx", "FrameDetectorCC", "ChannelModel",
-                                   "config_space_loopback"])
+                                   "config_space_loopback", "StreamingRx", "adapt_loop"])
 def test_entry_points_raise_without_gpu(entry):
     """device=None means the GPU; without one the call raises instead of
     running on the CPU."""
     _no_gpu()
     import liquiddsp_tpu_torch
     from liquiddsp_tpu_torch import FrameConfig, streams
+    from liquiddsp_tpu_torch.adapt_loop import adapt_loop
     from liquiddsp_tpu_torch.parallel import mesh
     from liquiddsp_tpu_torch.config_space import config_space_loopback
     from liquiddsp_tpu_torch.phy import detector, framegen, framesync, tables
-    from liquiddsp_tpu_torch.runtime import blocks, sim
+    from liquiddsp_tpu_torch.runtime import blocks, sim, stream
 
     cfg = FrameConfig(1, 0, 0, 64)
     x = torch.zeros((1, 2048), dtype=torch.complex64)
@@ -84,6 +90,8 @@ def test_entry_points_raise_without_gpu(entry):
         "FrameDetectorCC": lambda: blocks.FrameDetectorCC(),
         "ChannelModel": lambda: sim.ChannelModel(),
         "config_space_loopback": lambda: config_space_loopback(),
+        "StreamingRx": lambda: stream.StreamingRx(cfg, batch=1, chunk_len=4096),
+        "adapt_loop": lambda: adapt_loop(batch=1, iters=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
