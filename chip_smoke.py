@@ -82,15 +82,34 @@ Phases, each fatal on failure:
    recorded feedback decides alike in every generation.
 14. (P7) the loop on the engine's dynamic noise schedule (nonstationary, 40
    generations, unpipelined, twice), with P6's checks.
+15. (P8) the resampled receiver at the reference bench's shape (bench.py
+   bench_resampled, BASELINE config 3): for both receiver configs, 64
+   channels x 65,536 in four sample-clock groups of 16 (-50, -20, +20, +50
+   ppm), resampled by arbitrary_groups with bf16 planes at rank 4, then
+   framesync_fixed; frames ending 64 samples or more before the block's end
+   are expected. Every valid payload bit-exact, uncoded at least the
+   expected count, coded at least 99 %; the resampler held against its CPU
+   run (bf16; float32 with TF32 off; float64) and timed three ways; rows 0-1
+   of the resampled block decoded again on the CPU give the same frames.
+16. (P9) slip_retry: 64 coded QPSK frames whose payload fades in one
+   32-symbol segment and comes out of the fade rotated by a quarter turn
+   (streams.fade_slip_symbols) through decode_payload_symbols: all recovered
+   with slip_retry, none without, both equal to a CPU run; one Viterbi
+   launch over the 192 candidates.
+17. (P10) the flowgraph layer: the package's grc/graphs/loopback.yaml (8
+   packets, 8/8 bit-exact against the source) and adaptation_loop.yaml (50
+   packets; the engine's decisions equal a CPU engine's fed the recorded
+   packet infos), every block on the card; packets/s.
 
 Every step of every path is driven with the kernels' launch counters set to 0
 just before and read just after, and fails unless each kernel of that path
 was launched exactly as often as the path demands: once a block (a
-streaming window, a loop generation) for the correlator and extract, once a
-block on the static path for recover (never on the SFO path), once a config
-group with an inner code for the Viterbi kernel (the speculative groups of
-P4 counted; in the loop, between the speculative groups and those plus the
-decoded header groups), once a sharded step for halo.
+streaming window, a loop generation, a flowgraph packet) for the correlator
+and extract, once a block on the static path for recover (never on the SFO
+path), once a config group with an inner code for the Viterbi kernel (the
+speculative groups of P4 counted; in the loop, between the speculative
+groups and those plus the decoded header groups; once for P9's three
+candidates of every frame), once a sharded step for halo.
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -99,6 +118,8 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
+import random
 import re
 import subprocess
 import sys
@@ -126,22 +147,33 @@ from liquiddsp_tpu_torch.kernels.recover import (
     recover_tile,
 )
 from liquiddsp_tpu_torch.kernels.viterbi import viterbi, viterbi_ref
+from liquiddsp_tpu_torch.grc.loader import GRAPHS_DIR, Flowgraph
 from liquiddsp_tpu_torch.ops.fec import conv, registry
+from liquiddsp_tpu_torch.ops.resample import arbitrary_groups, lowrank_operands, plane_conv
 from liquiddsp_tpu_torch.parallel.halo import sharded_framesync
 from liquiddsp_tpu_torch.parallel.mesh import make_mesh
 from liquiddsp_tpu_torch.phy import detector
 from liquiddsp_tpu_torch.phy import frame_spec as fs
-from liquiddsp_tpu_torch.phy.framesync import SFO_AUTO_SYMS, framesync_fixed
+from liquiddsp_tpu_torch.phy.framesync import (
+    SFO_AUTO_SYMS,
+    decode_payload_symbols,
+    framesync_fixed,
+)
 from liquiddsp_tpu_torch.phy.tables import phy_tables
 from liquiddsp_tpu_torch.adapt_loop import adapt_loop, block_samples, channel_block
 from liquiddsp_tpu_torch.engine.cognitive_engine import CognitiveEngineBlock
-from liquiddsp_tpu_torch.runtime.blocks import FlexRx
+from liquiddsp_tpu_torch.runtime.blocks import FlexRx, FlexTx
+from liquiddsp_tpu_torch.runtime.sim import ChannelModel
 from liquiddsp_tpu_torch.runtime.distributed_stream import ShardedStreamingRx
 from liquiddsp_tpu_torch.runtime.native import NativeChunkSource
 from liquiddsp_tpu_torch.runtime.stream import StreamingRx, split_results
 from liquiddsp_tpu_torch.streams import (
+    RESAMPLED_PPMS,
+    RESAMPLED_TAIL_MARGIN,
     burst_stream,
+    fade_slip_symbols,
     long_stream,
+    resampled_stream,
     shard_slots,
     stretched_stream,
     tiled_stream,
@@ -169,6 +201,10 @@ P4_PAYLOAD, P4_SEED = 64, 7
 P5_CHUNKS, P5_PER_LAUNCH, P5_TILES, P5_PUSH = 10, 5, 3, 4093
 # P6-P7: bench/adapt_loop.py's defaults; P7 its dynamic schedule
 P6_ITERS, P6_SNR, P6_PAYLOAD, P7_ITERS = 50, 15.0, 32, 40
+# P9: slip_retry on 64 faded and slipped frames of the coded config
+P9_CFG, P9_FRAMES, P9_NOISE_VAR = FrameConfig(1, 1, 1, 64), 64, 0.01
+# P10: packets through the port's two flowgraphs
+P10_LOOPBACK, P10_ADAPT = 8, 50
 # published peaks of one H100 SXM at its full power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -637,7 +673,11 @@ def config_name(cfg) -> str:
     return f"({cfg.modulation},{cfg.inner_code},{cfg.outer_code})"
 
 
-def check_frames(res, payloads, n_frames: int, min_share: float, cfg) -> tuple[int, int]:
+def check_frames(res, payloads, n_frames: int, min_share: float, cfg,
+                 most: int | None = None) -> tuple[int, int]:
+    """Every valid payload bit-exact, and at least ``min_share`` of the
+    ``n_frames`` a row expected, at most ``most`` in all (the expected count
+    when None)."""
     spec = fs.FrameSpec(cfg)
     k = res.mask.shape[1]
     batch = payloads.shape[0]
@@ -652,7 +692,7 @@ def check_frames(res, payloads, n_frames: int, min_share: float, cfg) -> tuple[i
     n_ok, n_exact, expected = int(valid.sum()), int(exact.sum()), n_frames * batch
     if n_exact != n_ok:
         fail(f"{n_ok - n_exact} valid payloads differ from what was sent")
-    if n_ok < min_share * expected or n_ok > expected:
+    if n_ok < min_share * expected or n_ok > (expected if most is None else most):
         fail(f"decoded {n_ok} of {expected} frames, need at least {min_share:.0%}")
     return n_ok, expected
 
@@ -1267,6 +1307,166 @@ def loop_p6_p7(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases P8-P10: the resampled receiver, slip_retry, the flowgraph layer
+# ---------------------------------------------------------------------------
+
+
+def resample_channels(x: torch.Tensor, rates, compute_dtype=torch.bfloat16, rank: int = 4):
+    """bench.py's per-channel resampler: one group of channels a rate,
+    resampled to the block's length, bf16 planes at rank 4 by default."""
+    return arbitrary_groups(x, rates, x.shape[1], compute_dtype=compute_dtype,
+                            rank=rank).to(torch.complex64)
+
+
+def whole_frames(cfg) -> int:
+    """Frames of a tiled_stream row that lie wholly in the block: the most a
+    row can decode."""
+    f = fs.FrameSpec(cfg).frame_samples
+    period = 37 + f + int(0.8 * f)
+    return sum(1 for i in range(BLOCK // period + 1) if 37 + i * period + f <= BLOCK)
+
+
+def resampler_precisions(x: torch.Tensor, rates, card: str) -> dict:
+    """P8's resampler on the card three ways (float64; float32 with TF32 off;
+    bf16 operands and planes), each held against the same function on the
+    CPU on the first row of every group (each group has its own plan), and
+    timed: the plane convolution alone, on the operands the resampler gives
+    it, and the whole arbitrary_groups, at 64 x 65,536 and rank 4."""
+    rows, H = lowrank_operands(x, rates, x.shape[1], 33, 0.5 * min(1.0, min(rates)), 4)
+    rows = rows.contiguous()
+    firsts = list(range(0, x.shape[0], x.shape[0] // len(rates)))
+    cpu_rows = x[firsts].cpu()
+    out = {}
+    for name, dt, tol_max, tol_rms in (("float64", torch.float64, 1e-5, None),
+                                       ("float32", torch.float32, 1e-5, None),
+                                       ("bf16", torch.bfloat16, 1e-2, 5e-3)):
+        got = resample_channels(x, rates, dt)[firsts].cpu()
+        # the CPU's reference in the same type (float32 for float64: the
+        # card's float64 must not be worse than the CPU's float32), one row
+        # a group
+        ref = resample_channels(cpu_rows, rates, torch.float32 if dt == torch.float64 else dt)
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        rms = float(torch.sqrt(torch.mean((got - ref).abs() ** 2) / torch.mean(ref.abs() ** 2)))
+        if not err <= tol_max * scale or (tol_rms is not None and not rms <= tol_rms):
+            fail(f"P8 resampler {name}: the card differs from the CPU by {err} (scale {scale}), "
+                 f"RMS {rms}")
+        out[name] = {
+            "max_abs_err_vs_cpu": err, "rms_rel_err_vs_cpu": rms,
+            "conv_ms": time_ms(lambda: plane_conv(rows, H, dt), 10),
+            "resampler_ms": time_ms(lambda: resample_channels(x, rates, dt), 5),
+        }
+    print(f"P8 resampler at {x.shape[0]} x {x.shape[1]}, rank 4, planes [{rows.shape[0]}, 4, "
+          f"{rows.shape[-1] - 32}]: " + "; ".join(
+              f"{k} conv {v['conv_ms']:.4f} ms, arbitrary_groups {v['resampler_ms']:.4f} ms, "
+              f"against the CPU max {v['max_abs_err_vs_cpu']:.3g} RMS {v['rms_rel_err_vs_cpu']:.3g}"
+              for k, v in out.items()) + f" [{card}]")
+    return out
+
+
+def resampled_run(cfg, snr, share, stream, card) -> dict:
+    """P8 for one config: arbitrary_groups (bf16, rank 4) then
+    framesync_fixed, as one counted step. Returns its launch counts."""
+    x, payloads, n_frames, max_frames, rates = stream
+    name = config_name(cfg)
+
+    def step():
+        y = resample_channels(x, rates)
+        return y, framesync_fixed(y, cfg, max_frames)
+
+    (y, res), got = counted(f"P8 resampled {name}", block_launches(cfg, 0), step)
+    n_ok, expected = check_frames(res, payloads, n_frames, share, cfg,
+                                  most=whole_frames(cfg) * BATCH)
+    check_against_cpu(y, res, cfg, max_frames)
+    step_s = []
+    for _ in range(3):
+        step_s.append(wall(step)[1])
+    step_ms = float(np.median(step_s)) * 1e3
+    print(f"P8 resampled receiver {name} payload {cfg.payload_len} at {snr:g} dB, {BATCH} x "
+          f"{BLOCK} in {len(rates)} groups at {RESAMPLED_PPMS} ppm (bf16 planes, rank 4, "
+          f"frames ending {RESAMPLED_TAIL_MARGIN} samples clear of the end expected): {n_ok}/{expected} "
+          f"frames bit-exact (at most {whole_frames(cfg) * BATCH}), rows 0-1 decoded again on the "
+          f"CPU agree; step {step_ms:.2f} ms, {BATCH * BLOCK / step_ms * 1e3:.4g} samples/s; "
+          f"launches {got} [{card}]")
+    return got
+
+
+def slip_retry_run(card: str) -> dict:
+    """P9: decode_payload_symbols on the faded and slipped frames, with and
+    without slip_retry, each one counted step; both against a CPU run."""
+    syms, payloads = fade_slip_symbols(P9_CFG, P9_FRAMES, seed=9, device=DEV)
+    want = {"correlator": 0, "extract": 0, "recover": 0, "viterbi": 1, "halo": 0}
+    launches, n = {}, {}
+    for retry in (True, False):
+        label = f"P9 slip_retry={retry}"
+        (msg, ok), launches[label] = counted(label, want, lambda: decode_payload_symbols(
+            syms, P9_CFG, noise_var=P9_NOISE_VAR, slip_retry=retry))
+        n[retry] = int(((msg == payloads).all(dim=-1) & ok).sum())
+        if bool((ok & ~(msg == payloads).all(dim=-1)).any()):
+            fail(f"{label}: a frame passed its CRC with another payload")
+        msg_c, ok_c = decode_payload_symbols(syms.cpu(), P9_CFG, noise_var=P9_NOISE_VAR,
+                                             slip_retry=retry)
+        if not (torch.equal(msg.cpu(), msg_c) and torch.equal(ok.cpu(), ok_c)):
+            fail(f"{label}: the card and the CPU decode otherwise")
+    if n[True] != P9_FRAMES or n[False] != 0:
+        fail(f"P9: slip_retry recovered {n[True]} of {P9_FRAMES}, without it {n[False]} decoded")
+    print(f"P9 slip_retry {config_name(P9_CFG)}: {n[True]}/{P9_FRAMES} faded and slipped frames "
+          f"recovered bit-exactly with slip_retry (one Viterbi launch over {3 * P9_FRAMES} "
+          f"candidates), {n[False]}/{P9_FRAMES} without; both equal a CPU run [{card}]")
+    return launches
+
+
+def flowgraph_run(card: str) -> dict:
+    """P10: the package's loopback and adaptation graphs on the card."""
+    front = lambda n: {"correlator": n, "extract": n, "recover": n}
+    fg = Flowgraph.load(os.path.join(GRAPHS_DIR, "loopback.yaml"), device=DEV)
+    got_pay = []
+    fg.blocks["rx"].bus.subscribe("payload_data", lambda pdu: got_pay.append(np.asarray(pdu.data)))
+    (_, t_loop), launches_loop = counted(
+        "P10 loopback graph", {**front(P10_LOOPBACK), "viterbi": 0, "halo": 0},
+        lambda: wall(lambda: fg.run(P10_LOOPBACK)))
+    sent = fg.blocks["src"].sent
+    if len(got_pay) != P10_LOOPBACK or not all(np.array_equal(a, b) for a, b in zip(sent, got_pay)):
+        fail(f"P10 loopback graph: {len(got_pay)}/{P10_LOOPBACK} payloads, not all equal to those sent")
+
+    fg = Flowgraph.load(os.path.join(GRAPHS_DIR, "adaptation_loop.yaml"), device=DEV)
+    ce = fg.blocks["ce"]
+    ce.engine.rng = random.Random(0)  # the graph's engine is unseeded; replayed below
+    infos, decisions, steps = [], [], []
+    fg.blocks["rx"].bus.subscribe("packet_info", lambda info: infos.append(info))
+    fg.nodes["ce"].wires["configuration"].append(lambda conf: decisions.append(conf))
+
+    def run():
+        for _ in range(P10_ADAPT):
+            n = len(infos)
+            fg.run(1)
+            steps.append(infos[n:])
+
+    def want(_):
+        coded = sum(len({(d["modulation"], d["inner_code"], d["outer_code"], d["payload_len"])
+                         for d in st if d["inner_code"]}) for st in steps)
+        return {**front(P10_ADAPT), "viterbi": coded, "halo": 0}
+
+    (_, t_adapt), launches_adapt = counted_by("P10 adaptation graph", want, lambda: wall(run))
+    if ce.num_packets != len(infos) or len(decisions) != len(infos) or not infos:
+        fail(f"P10 adaptation graph: {len(infos)} packet infos, {len(decisions)} decisions, "
+             f"engine saw {ce.num_packets}")
+    ref = CognitiveEngineBlock(ce_type="epsilon_greedy", seed=0)
+    for i, (info, conf) in enumerate(zip(infos, decisions)):
+        if ref.handler(info) != conf:
+            fail(f"P10 adaptation graph: a CPU engine fed the recorded packet infos decides "
+                 f"otherwise at packet {i}")
+    valid = sum(d["payload_valid"] for d in infos)
+    configs = sorted({(d["modulation"], d["inner_code"], d["outer_code"]) for d in infos})
+    print(f"P10 flowgraph: loopback.yaml {len(got_pay)}/{P10_LOOPBACK} packets bit-exact, "
+          f"{P10_LOOPBACK / t_loop:.1f} packets/s; adaptation_loop.yaml {P10_ADAPT} packets, "
+          f"{len(infos)} decoded headers, {valid} valid payloads, {len(configs)} configs visited, "
+          f"{P10_ADAPT / t_adapt:.1f} packets/s, a CPU engine fed the recorded infos decides alike; "
+          f"launches {launches_loop} / {launches_adapt} [{card}]")
+    return {"P10 loopback graph": launches_loop, "P10 adaptation graph": launches_adapt}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = card_line()
@@ -1313,6 +1513,13 @@ def main() -> None:
     p6_cfgs = [ALL_CONFIGS[i] for i in rng6.integers(0, len(ALL_CONFIGS), BATCH)]
     p6_x = channel_block(p6_cfgs, rng6.integers(0, 256, (BATCH, P6_PAYLOAD), dtype=np.uint8),
                          P6_SNR, block_samples(P6_PAYLOAD), gen, DEV)
+    # P8: the resampled receiver's streams and the blocks its receiver sees;
+    # P10: a flowgraph block (FlexTx -> ChannelModel) at payload 32
+    p8_streams = [resampled_stream(cfg, snr, BATCH, BLOCK, RESAMPLED_PPMS, gen, DEV)
+                  for cfg, snr, _ in CONFIGS]
+    p8_blocks = [resample_channels(st[0], st[4]) for st in p8_streams]
+    p10_x = ChannelModel(20.0, seed=7, device=DEV).apply(
+        FlexTx(1, 0, 0, device=DEV).send_pkt(np.zeros((1, 32), np.uint8)))
     torch.cuda.synchronize()
 
     # kernel shapes of the main path: the candidates the detector finds
@@ -1380,6 +1587,16 @@ def main() -> None:
             check_viterbi_lam(kernels, "P5 StreamingRx " + config_name(cfg),
                               receiver_lam(BATCH * k5, cfg.payload_len, cfg.inner_code, cfg.outer_code, gen))
     check_path_shapes(kernels, "P6 loop FlexRx payload 32", p6_x, max_syms(P6_PAYLOAD), 2, gen)
+    # P8: the resampled blocks with the bench's slot count; P9: the Viterbi
+    # kernel over three candidates of 64 frames; P10: a flowgraph block, one
+    # frame of every code at payload 32
+    for (cfg, _, _), stream, y in zip(CONFIGS, p8_streams, p8_blocks):
+        check_path_shapes(kernels, "P8 resampled " + config_name(cfg), y, syms_of(cfg), stream[3], gen)
+    check_viterbi_lam(kernels, "P9 slip_retry " + config_name(P9_CFG),
+                      receiver_lam(3 * P9_FRAMES, P9_CFG.payload_len, P9_CFG.inner_code,
+                                   P9_CFG.outer_code, gen))
+    check_path_shapes(kernels, "P10 flowgraph FlexRx payload 32", p10_x, max_syms(32), 8, gen)
+    check_viterbi_shapes(kernels, "P10", 1, 32, gen)
     print(f"kernels: all five agree with their plain versions at the shapes of every path "
           f"({time.perf_counter() - t_start:.0f} s)")
     if "--kernels-only" in sys.argv[1:]:
@@ -1447,6 +1664,14 @@ def main() -> None:
     print(f"P5 done ({time.perf_counter() - t_start:.0f} s)")
     launches.update(loop_p6_p7(card))
     print(f"P6 and P7 done ({time.perf_counter() - t_start:.0f} s)")
+    resampler_precisions(p8_streams[0][0], p8_streams[0][4], card)
+    for (cfg, snr, share), stream in zip(CONFIGS, p8_streams):
+        launches[f"P8 resampled {config_name(cfg)}"] = resampled_run(cfg, snr, share, stream, card)
+    del p8_streams, p8_blocks
+    print(f"P8 done ({time.perf_counter() - t_start:.0f} s)")
+    launches.update(slip_retry_run(card))
+    launches.update(flowgraph_run(card))
+    print(f"P9 and P10 done ({time.perf_counter() - t_start:.0f} s)")
 
     for k in kernels:
         k["launches_by_config"] = {label: d[k["name"]] for label, d in launches.items()}

@@ -14,7 +14,11 @@ device: ``parallel.halo.sharded_framesync``, its streaming wrapper
 ``runtime.blocks.FlexRx``; the continuous streaming receiver
 ``runtime.stream.StreamingRx`` with ``runtime.supervisor`` and
 ``runtime.native``; the cognitive engine ``engine`` (host code) and the
-closed adaptation loop ``adapt_loop.adapt_loop``. Entry points run on the
+closed adaptation loop ``adapt_loop.adapt_loop``; the resampled receiver
+(``ops.resample.arbitrary_groups`` ahead of ``framesync_fixed``) with the
+rest of ``ops`` (AGC, NCO, FIR, the integer resamplers); the golden
+oracle's binding ``golden``; and the flowgraph layer ``grc`` with its
+demos under ``apps``. Entry points run on the
 GPU unless the caller passes ``device="cpu"``. ``dryrun_sharded(n_time)`` is
 the quick proof of the sharded path.
 """

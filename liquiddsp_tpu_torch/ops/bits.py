@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,11 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     )
     v = torch.sum(bits.reshape(shape).to(torch.int32) * weights, dim=-1)
     return v.to(torch.uint8)
+
+
+def bytes_to_bits_host(b: np.ndarray) -> np.ndarray:
+    return np.unpackbits(np.asarray(b, dtype=np.uint8), axis=-1)
+
+
+def bits_to_bytes_host(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(np.asarray(bits, dtype=np.uint8), axis=-1)

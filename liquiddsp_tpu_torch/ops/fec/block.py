@@ -11,12 +11,14 @@ Encode is a bit-level product with the parity matrix P (``m @ P mod 2`` in
 float32, exact since row sums are tiny). Decode is a syndrome product, then
 for the single-error codes one comparison of the packed syndrome against the
 k data-column syndromes, and for Golay the arithmetic table-free decoder on
-packed 12-bit syndromes.
+packed 12-bit syndromes. ``encode_host`` / ``decode_host`` are the numpy
+oracle (decode by a syndrome table).
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -101,13 +103,53 @@ def _decode_golay_packed(s: torch.Tensor) -> torch.Tensor:
 
 
 class LinearBlockCode:
-    """Systematic (n, k) binary code with G = [I_k | P], H = [P^T | I_{n-k}]."""
+    """Systematic (n, k) binary code with G = [I_k | P], H = [P^T | I_{n-k}].
 
-    def __init__(self, name: str, p: np.ndarray):
+    ``max_correct`` bounds the weight of the error patterns in the host
+    oracle's syndrome table (1 for Hamming/SEC-DED, 3 for Golay).
+    """
+
+    def __init__(self, name: str, p: np.ndarray, max_correct: int = 1):
         self.name = name
         self.p = p.astype(np.uint8)
         self.k, self.r = p.shape
         self.n = self.k + self.r
+        self.max_correct = max_correct
+
+    def _syndrome_of(self, err: np.ndarray) -> int:
+        # H = [P^T | I_r]; syndrome = err @ H^T
+        s = ((err[: self.k] @ self.p) % 2) ^ err[self.k :]
+        return int(np.dot(s, 1 << np.arange(self.r)))
+
+    @functools.cached_property
+    def _syndrome_table(self) -> np.ndarray:
+        """[2**r, n] uint8: the lowest-weight error pattern (up to
+        ``max_correct``) of each syndrome, first in combination order."""
+        table = np.zeros((1 << self.r, self.n), dtype=np.uint8)
+        filled = np.zeros(1 << self.r, dtype=bool)
+        filled[0] = True
+        for w in range(1, self.max_correct + 1):
+            for combo in itertools.combinations(range(self.n), w):
+                err = np.zeros(self.n, dtype=np.uint8)
+                err[list(combo)] = 1
+                s = self._syndrome_of(err)
+                if not filled[s]:
+                    table[s] = err
+                    filled[s] = True
+        return table
+
+    def encode_host(self, bits: np.ndarray) -> np.ndarray:
+        """[nblocks, k] -> [nblocks, n] (numpy oracle)."""
+        parity = (bits @ self.p) % 2
+        return np.concatenate([bits, parity], axis=-1).astype(np.uint8)
+
+    def decode_host(self, bits: np.ndarray) -> np.ndarray:
+        """[nblocks, n] -> corrected data [nblocks, k] by the syndrome table
+        (numpy oracle)."""
+        data, par = bits[:, : self.k], bits[:, self.k :]
+        s = ((data @ self.p) % 2) ^ par
+        err = self._syndrome_table[s @ (1 << np.arange(self.r))]
+        return (bits ^ err)[:, : self.k].astype(np.uint8)
 
     def _p(self, device: torch.device) -> torch.Tensor:
         return device_const(
@@ -188,4 +230,4 @@ def secded7264() -> LinearBlockCode:
 
 @functools.lru_cache(maxsize=None)
 def golay2412() -> LinearBlockCode:
-    return LinearBlockCode("golay2412", _golay_b_matrix())
+    return LinearBlockCode("golay2412", _golay_b_matrix(), max_correct=3)

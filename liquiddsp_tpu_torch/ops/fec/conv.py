@@ -174,6 +174,13 @@ def decode(llrs: torch.Tensor, nbits: int, inner_code: int) -> torch.Tensor:
     return bits[:, :nbits].reshape(batch_shape + (nbits,))
 
 
+def decode_hard(bits: torch.Tensor, nbits: int, inner_code: int) -> torch.Tensor:
+    """Hard-decision convenience wrapper: coded bits {0,1} -> message bits."""
+    if inner_code == 0:
+        return bits[..., :nbits].to(torch.int8)
+    return decode(1.0 - 2.0 * bits.to(torch.float32), nbits, inner_code)
+
+
 def _viterbi_run(lam: torch.Tensor) -> torch.Tensor:
     """Exact ACS + traceback over [B, steps, 2] erasure-padded LLRs -> bits
     [B, steps] int8, start and end state pinned to 0.

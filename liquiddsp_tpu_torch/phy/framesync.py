@@ -26,8 +26,7 @@ complex windows, a decision-free fit of the sampling-instant trajectory over
 block receiver. ``sync_common`` (steps 1-4) and ``decode_payload_symbols``
 (step 5) are the two halves that the self-describing receiver
 (runtime/blocks.FlexRx) composes with a payload config read from each
-header. Not ported, and absent from the signatures: the ablation hooks and
-``slip_retry``.
+header. Not ported, and absent from the signatures: the ablation hooks.
 """
 
 from __future__ import annotations
@@ -175,6 +174,20 @@ def _recover_planes(wr, wi, det: Detections, n_syms: int, tables: PhyTables,
         wr, wi, det.dphi.contiguous(), det.phi.contiguous(), det.gamma.contiguous(),
         _candidate_taps30(det, tables.timing_bank30, timing_bank), n_syms,
     )
+
+
+def extract_symbols(
+    x: torch.Tensor, det: Detections, n_syms: int, timing_bank: bool = True,
+    *, tables: PhyTables | None = None,
+) -> torch.Tensor:
+    """Recover [B, K, n_syms] symbol estimates of each candidate frame of
+    ``x`` [B, T] on the static path: extract the windows at the detected
+    starts (kernels/extract.py), then ``symbols_from_windows``."""
+    n_samples = fs.K_SAMP * n_syms + fs.PULSE_TAIL
+    wr, wi = extract_windows(x, det.start, n_samples, return_planes=True)
+    if tables is None:
+        tables = phy_tables(None, x.device)
+    return _recover_planes(wr, wi, det, n_syms, tables, timing_bank)
 
 
 def symbols_from_windows(
@@ -1003,6 +1016,7 @@ def decode_payload_symbols(
     noise_var: torch.Tensor | float | None = None,
     anchor: torch.Tensor | None = None,
     anchor_slope: torch.Tensor | float = 0.0,
+    slip_retry: bool = False,
     *,
     tables: PhyTables | None = None,
 ):
@@ -1017,6 +1031,15 @@ def decode_payload_symbols(
     header). Without it, a V&V estimate of the header tail is used (fold-free
     only while the residual there is < pi/4). ``track=False`` skips the
     carrier tracker and its fading weights.
+
+    ``slip_retry`` (with the tracker, coherent modulations): across a deep
+    fade the tracker's fold decision runs blind, and if the true phase moved
+    by more than half a symmetry period there, every later segment comes
+    out rotated by exactly one period. The least-confident segment (the
+    fade minimum of the gain weights) marks the slip, so three candidates
+    are decoded in one batch, as tracked and rotated by +-one period from
+    the boundary after that segment, and CRC-24 picks: the first that
+    passes (as tracked on a tie).
     """
     if tables is None:
         tables = phy_tables(cfg, syms.device)
@@ -1050,12 +1073,28 @@ def decode_payload_symbols(
         # its estimated complex gain, so post-normalization noise is up by
         # 1/|g|^2 there
         nv = nv / torch.square(gmag)
+    retry = slip_retry and gmag is not None and not modem.is_differential(cfg.modulation)
+    if retry:
+        seg = 32
+        js = torch.argmin(gmag[..., ::seg], dim=-1)  # [...] fade minimum
+        t_idx = torch.arange(pay.shape[-1], device=dev)
+        mask = (t_idx >= (js[..., None] + 1) * seg).to(torch.float32)
+        rots = torch.stack([torch.zeros_like(mask), mask, -mask], dim=-2)
+        period = modem.rotational_symmetry(cfg.modulation)
+        pay = pay[..., None, :] * expj(period * rots)  # [..., 3, n]
+        nv = nv[..., None, :] if nv.dim() else nv
     llr = modem.demod_soft_bits(pay, cfg.modulation, nv)
     llr = llr[..., : spec.inner_bits]  # drop modulation pad bits
     llr = llr[..., tables.interleave_inv]
     obits = registry.inner_decode(llr, spec.outer_bits, cfg.inner_code)
     msg = registry.outer_decode(obits, spec.payload_msg_bytes, cfg.outer_code)
     crc_ok = crc.crc24_check(msg)
+    if retry:
+        # the first CRC pass wins (candidate 0, as tracked, on a tie)
+        pick = torch.argmax(crc_ok.to(torch.int32), dim=-1)
+        idx = pick[..., None, None].expand(pick.shape + (1, msg.shape[-1]))
+        msg = torch.gather(msg, -2, idx)[..., 0, :]
+        crc_ok = torch.any(crc_ok, dim=-1)
     return msg[..., : cfg.payload_len], crc_ok
 
 
@@ -1073,6 +1112,7 @@ def framesync_fixed(
     track: bool = True,
     noise_var_override: torch.Tensor | float | None = None,
     return_peak_count: bool = False,
+    slip_retry: bool = False,
     *,
     tables: PhyTables | None = None,
     device: torch.device | str | None = None,
@@ -1082,9 +1122,9 @@ def framesync_fixed(
     [B, T] samples -> FrameResults with [B, K] slots, on ``device``
     (``None``: the GPU), and the peak count per row with
     ``return_peak_count``. Frames straddling the block end are not decoded.
-    The options are sync_common's; ``track`` and ``noise_var_override`` are
-    decode_payload_symbols' ``track`` and ``noise_var`` (the header EVM when
-    ``None``).
+    The options are sync_common's; ``track``, ``noise_var_override`` and
+    ``slip_retry`` are decode_payload_symbols' ``track``, ``noise_var`` (the
+    header EVM when ``None``) and ``slip_retry``.
     """
     dev = resolve_device(device)
     if tables is None:
@@ -1097,14 +1137,14 @@ def framesync_fixed(
     )
     det, syms, fields, evm_lin = sc[:4]
     res = _finish_fixed(det, syms, fields, evm_lin, sc[-1], cfg, tables, track,
-                        noise_var_override)
+                        noise_var_override, slip_retry)
     if return_peak_count:
         return res, sc[4]
     return res
 
 
 def _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables, track=True,
-                  noise_var=None) -> FrameResults:
+                  noise_var=None, slip_retry=False) -> FrameResults:
     """Stage 5 and the result record, from the outputs of sync_common."""
     hdr_valid, user, plen, mod, inner, outer = fields
     if hdr_ref is None:
@@ -1129,7 +1169,7 @@ def _finish_fixed(det, syms, fields, evm_lin, hdr_ref, cfg, tables, track=True,
 
     payload, crc_ok = decode_payload_symbols(
         syms, cfg, track, evm_lin if noise_var is None else noise_var, anchor, a_slope,
-        tables=tables,
+        slip_retry, tables=tables,
     )
     pay_valid = crc_ok & hdr_valid
 

@@ -1,6 +1,6 @@
 """Where one receiver step spends its time on the GPU.
 
-    python3 -m liquiddsp_tpu_torch.profile_step [--sharded] [--flexrx] [--stream] [--out DIR]
+    python3 -m liquiddsp_tpu_torch.profile_step [--sharded] [--flexrx] [--stream] [--resampled] [--out DIR]
 
 For both receiver configs at 64 x 65,536 samples it prints, with the card's
 name and power limit: the time of each stage (host clock around work that
@@ -19,7 +19,14 @@ its symbol-recovery stage are those of an SFO block). With ``--stream`` it
 profiles the continuous streaming receiver (``StreamingRx``: one step and one
 superstep of 5 chunks of 64 x 65,536, both configs) and ten generations of
 the closed adaptation loop at its defaults (64 channels, payload 32, 15 dB).
-With ``--out`` it also writes these numbers as JSON.
+With ``--resampled`` it profiles the resampled receiver step of the reference
+bench (BASELINE config 3, both configs): 64 channels x 65,536 in four
+sample-clock groups, ``arbitrary_groups`` with bf16 planes at rank 4 as a
+stage of its own, then framesync_fixed; and it times ``ops.fir.conv_full``
+(one ``conv1d``, TF32 off) against one shifted multiply-add a tap at 64 x
+65,536 with the 65-tap ``design_lowpass``, and the AGC and NCO ops (the
+per-sample loops agc_scan and pll_track at 8,192 samples). With ``--out`` it
+also writes these numbers as JSON.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from liquiddsp_tpu_torch import config_space as cs
 from liquiddsp_tpu_torch.adapt_loop import adapt_loop
 from liquiddsp_tpu_torch.core.device import resolve_device
 from liquiddsp_tpu_torch.kernels.halo import halo_windows
+from liquiddsp_tpu_torch.ops import agc, fir, nco, resample
 from liquiddsp_tpu_torch.ops.fec import rs
 from liquiddsp_tpu_torch.parallel.halo import sharded_framesync
 from liquiddsp_tpu_torch.parallel.mesh import make_mesh
@@ -46,7 +54,14 @@ from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.tables import phy_tables
 from liquiddsp_tpu_torch.runtime.blocks import FlexRx
 from liquiddsp_tpu_torch.runtime.stream import StreamingRx
-from liquiddsp_tpu_torch.streams import long_stream, shard_slots, stretched_stream, tiled_stream
+from liquiddsp_tpu_torch.streams import (
+    RESAMPLED_PPMS,
+    long_stream,
+    resampled_stream,
+    shard_slots,
+    stretched_stream,
+    tiled_stream,
+)
 
 BATCH, BLOCK = 64, 65536
 SH_BATCH, SH_TOTAL, SH_NTIME = 8, 524288, 8  # the same samples as long channels
@@ -93,13 +108,15 @@ def _device_profile(fn) -> dict:
 
 
 def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = False,
-                   ppm: float = 0.0) -> dict:
+                   ppm: float = 0.0, resampled: bool = False) -> dict:
     """One receiver step of ``cfg``; ``ppm`` stretches the block's rows by
-    +-ppm (``streams.stretched_stream``)."""
+    +-ppm (``streams.stretched_stream``); ``resampled`` puts bench.py's
+    per-channel resampler ahead of the receiver (``streams.resampled_stream``,
+    the resampler a stage of its own)."""
     tables = phy_tables(cfg, dev)
     spec = fs.FrameSpec(cfg)
     track = spec.frame_syms >= framesync.SFO_AUTO_SYMS  # framesync_fixed's "auto"
-    stage_ms = {}
+    stage_ms, extra = {}, {}
     if sharded:
         xs, _, _, _ = long_stream(cfg, snr_db, SH_BATCH, SH_TOTAL, gen, dev)
         mesh = make_mesh(n_time=SH_NTIME, n_ch=1, devices=[dev])
@@ -109,6 +126,14 @@ def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = Fa
         step()  # warm-up (builds the kernels at first use)
         windows, stage_ms["halo windows"] = _timed(lambda: halo_windows(xs, SH_NTIME, f - 1))
         x = windows.reshape(SH_NTIME * SH_BATCH, t_local + f - 1)
+    elif resampled:
+        xs, _, _, k, rates = resampled_stream(cfg, snr_db, BATCH, BLOCK, RESAMPLED_PPMS, gen, dev)
+        resampler = lambda: resample.arbitrary_groups(
+            xs, rates, BLOCK, compute_dtype=torch.bfloat16, rank=4).to(torch.complex64)
+        step = lambda: framesync.framesync_fixed(resampler(), cfg, k, device=dev)
+        step()  # warm-up
+        x, stage_ms["resample"] = _timed(resampler)
+        extra["resample_stage_device_launches"] = _device_profile(resampler)["device_kernel_launches"]
     else:
         if ppm:
             x, _, _, k = stretched_stream(cfg, snr_db, ppm, BATCH, BLOCK, gen, dev)
@@ -132,13 +157,14 @@ def profile_config(cfg: FrameConfig, snr_db: float, dev, gen, sharded: bool = Fa
 
     return {
         "config": [cfg.modulation, cfg.inner_code, cfg.outer_code, cfg.payload_len],
-        "path": "sharded_framesync" if sharded else "framesync_fixed",
+        "path": ("sharded_framesync" if sharded else
+                 "arbitrary_groups + framesync_fixed" if resampled else "framesync_fixed"),
         "local_receiver_shape": list(x.shape), "sample_clock_offset_ppm": ppm,
         "symbol_recovery": "sample-clock-drift path" if track else "recover kernel",
         "snr_db": snr_db, "max_frames": k,
         "stage_ms": {**stage_ms, "detect": t_detect, "extract+fine_cfo+recover": t_recover,
                      "eq+carrier+header": t_sync, "payload": t_payload},
-        "recover_stage_device_launches": recover_launches,
+        "recover_stage_device_launches": recover_launches, **extra,
         "step_ms": t_step, "samples_per_s": BATCH * BLOCK / (t_step * 1e-3),
         **_device_profile(step),
         "peak_device_memory_mb": peak_mb,
@@ -222,6 +248,51 @@ def profile_loop(dev, iters: int = 10) -> dict:
     }
 
 
+def fir_formulations(dev, gen) -> dict:
+    """``fir.conv_full`` (one conv1d, TF32 off) against one shifted
+    multiply-add a tap, on 64 x 65,536 complex samples with the 65-tap
+    ``design_lowpass(0.25)``: their times and largest difference."""
+    x = torch.complex(torch.randn((BATCH, BLOCK), generator=gen, device=dev),
+                      torch.randn((BATCH, BLOCK), generator=gen, device=dev))
+    h = resample.design_lowpass(0.25)
+
+    def fma():
+        out = torch.zeros((BATCH, BLOCK + len(h) - 1), dtype=torch.complex64, device=dev)
+        for j, tap in enumerate(h.tolist()):
+            out[:, j : j + BLOCK] += x * tap
+        return out
+
+    a, t_conv = _timed(lambda: fir.conv_full(x, h), reps=10)
+    b, t_fma = _timed(fma, reps=10)
+    return {"shape": [BATCH, BLOCK], "taps": len(h), "conv1d_tf32_off_ms": t_conv,
+            "shifted_fma_ms": t_fma, "max_abs_diff": float((a - b).abs().max()),
+            "max_abs": float(b.abs().max())}
+
+
+def dsp_ops(dev, gen, loop_len: int = 8192) -> dict:
+    """The rest of ``ops/`` that no receiver path calls, on 64 channels: the
+    parallel ones (agc_block, agc_windowed, mix_down, mix_up) at 65,536
+    samples, the per-sample loops (agc_scan, pll_track: a few launches a
+    sample) at ``loop_len``."""
+    rows = lambda n: torch.complex(torch.randn((BATCH, n), generator=gen, device=dev),
+                                   torch.randn((BATCH, n), generator=gen, device=dev))
+    x, xs, ref = rows(BLOCK), rows(loop_len), rows(loop_len)
+    dphi = torch.rand(BATCH, generator=gen, device=dev) * 0.01
+    out = {"rows": BATCH, "parallel_len": BLOCK, "loop_len": loop_len}
+    for name, fn in (("agc_block", lambda: agc.agc_block(x)),
+                     ("agc_windowed", lambda: agc.agc_windowed(x)),
+                     ("mix_down", lambda: nco.mix_down(x, dphi, 0.3)),
+                     ("mix_up", lambda: nco.mix_up(x, dphi, 0.3))):
+        out[f"{name}_ms"] = _timed(fn, reps=10)[1]
+    for name, fn, reps in (("agc_scan", lambda: agc.agc_scan(xs), 3),
+                           ("pll_track", lambda: nco.pll_track(xs, ref), 3)):
+        fn()  # warm-up
+        out[f"{name}_ms"] = _timed(fn, reps=reps)[1]
+        out[f"{name}_us_per_sample"] = out[f"{name}_ms"] * 1e3 / loop_len
+        out[f"{name}_device_launches"] = _device_profile(fn)["device_kernel_launches"]
+    return out
+
+
 def rs_decode_launches(dev, gen) -> dict:
     """Device launches and time of one Reed-Solomon decode of 64 x 36 blocks
     of 67 + 32 bytes (the slots of one (10,0,2) sharded step), 4 byte errors a
@@ -252,6 +323,8 @@ def main() -> None:
                     help="also profile FlexRx on a mixed-config block and an SFO block")
     ap.add_argument("--stream", action="store_true",
                     help="also profile StreamingRx and the closed adaptation loop")
+    ap.add_argument("--resampled", action="store_true",
+                    help="also profile the resampled receiver step and the FIR formulations")
     ap.add_argument("--out", type=Path, default=None, help="directory for profile_step.json")
     args = ap.parse_args()
     dev = resolve_device(None)
@@ -272,6 +345,10 @@ def main() -> None:
     if args.stream:
         report["stream"] = [profile_stream(c, snr, dev, gen) for c, snr in cases]
         report["loop"] = profile_loop(dev)
+    if args.resampled:
+        report["resampled"] = [profile_config(c, snr, dev, gen, resampled=True) for c, snr in cases]
+        report["fir"] = fir_formulations(dev, gen)
+        report["dsp_ops"] = dsp_ops(dev, gen)
     print(json.dumps(report, indent=1))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)

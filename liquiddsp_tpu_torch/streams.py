@@ -2,12 +2,15 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from liquiddsp_tpu_torch.core.config import FrameConfig
 from liquiddsp_tpu_torch.core.device import resolve_device
-from liquiddsp_tpu_torch.ops import resample
+from liquiddsp_tpu_torch.ops import modem, resample
+from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy import framegen
+from liquiddsp_tpu_torch.phy.tables import phy_tables
 
 
 def tiled_stream(
@@ -17,13 +20,17 @@ def tiled_stream(
     block: int,
     gen: torch.Generator,
     device: torch.device | str | None = None,
+    tail_margin: int = 0,
 ):
     """The block receiver's standard load: per row one random payload, its
     frame tiled as [37 lead-in | frame | 0.8 f gap] to ``block`` samples, plus
     AWGN at ``snr_db`` (noise from ``gen``, which lives on ``device``).
 
     Returns (x [batch, block] complex64, payloads [batch, payload_len] uint8,
-    whole frames per row, max_frames for the receiver)."""
+    whole frames per row, max_frames for the receiver). A frame counts as
+    whole when it ends ``tail_margin`` samples before the block's end or
+    earlier: a transform ahead of the receiver (a resampler at a rate other
+    than 1) may move the last frame that far."""
     dev = resolve_device(device)
     payloads = torch.randint(
         0, 256, (batch, cfg.payload_len), generator=gen, device=dev, dtype=torch.int32
@@ -31,7 +38,8 @@ def tiled_stream(
     frames = framegen.framegen(payloads, cfg, device=dev)
     f, period = frames.shape[1], _period(cfg)
     gap = period - 37 - f
-    n_frames = sum(1 for i in range(block // period + 1) if 37 + i * period + f <= block)
+    n_frames = sum(1 for i in range(block // period + 1)
+                   if 37 + i * period + f <= block - tail_margin)
     zeros = lambda n: torch.zeros((batch, n), dtype=torch.complex64, device=dev)
     pattern = torch.cat([zeros(37), frames, zeros(gap)], dim=1)
     x = pattern.repeat(1, -(-block // period))[:, :block]
@@ -42,6 +50,34 @@ def tiled_stream(
     )
     x = (x + sigma * noise).to(torch.complex64).contiguous()
     return x, payloads, n_frames, block // period + 2
+
+
+# bench.py's resampled configuration (BASELINE config 3): four sample-clock
+# groups of channels, in ppm
+RESAMPLED_PPMS = (-50.0, -20.0, 20.0, 50.0)
+# bench.py's tail margin for that configuration: a frame counts as whole when
+# it ends this many samples before the block's end
+RESAMPLED_TAIL_MARGIN = 64
+
+
+def resampled_stream(
+    cfg: FrameConfig,
+    snr_db: float,
+    batch: int,
+    block: int,
+    ppms,
+    gen: torch.Generator,
+    device: torch.device | str | None = None,
+):
+    """The resampled receiver's load (BASELINE config 3, bench.py's
+    ``bench_resampled``): ``tiled_stream`` with ``RESAMPLED_TAIL_MARGIN`` and
+    the rates 1 + ppm * 1e-6 of ``len(ppms)`` equal groups of channels, which
+    the receiver resamples with ``ops.resample.arbitrary_groups`` ahead of
+    ``framesync_fixed``. Returns ``tiled_stream``'s tuple and the rates."""
+    if batch % len(ppms):
+        raise ValueError(f"{batch} channels do not split into {len(ppms)} groups")
+    stream = tiled_stream(cfg, snr_db, batch, block, gen, device, RESAMPLED_TAIL_MARGIN)
+    return (*stream, tuple(1.0 + p * 1e-6 for p in ppms))
 
 
 def stretched_stream(
@@ -162,3 +198,30 @@ def burst_stream(
     )
     starts_t = torch.as_tensor(starts, dtype=torch.int64, device=dev).expand(batch, n)
     return (x + sigma * noise).contiguous(), payloads, starts_t, torch.ones_like(starts_t, dtype=torch.bool)
+
+
+def fade_slip_symbols(cfg: FrameConfig, batch: int, seed: int,
+                      device: torch.device | str | None = None):
+    """Frame symbols with the slip of sub-frame fading that
+    ``decode_payload_symbols(slip_retry=True)`` recovers: per row a random
+    payload (numpy, from ``seed``), its frame's symbols with the 32-symbol
+    payload segment 2 + row % 4 faded to 0.05, every symbol after it
+    rotated by one symmetry period of the modulation (+ on even rows, - on
+    odd), plus complex Gaussian noise of deviation 0.01 a component.
+
+    Returns (symbols [batch, frame_syms] complex64, payloads [batch,
+    payload_len] uint8), both on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    payloads = rng.integers(0, 256, (batch, cfg.payload_len), dtype=np.uint8)
+    syms = framegen.assemble_symbols(torch.from_numpy(payloads).to(dev), cfg, None,
+                                     phy_tables(cfg, dev)).cpu().numpy()
+    h1 = fs.PREAMBLE_SYMS + fs.HEADER_SYMS
+    period = modem.rotational_symmetry(cfg.modulation)
+    for b in range(batch):
+        a = h1 + 32 * (2 + b % 4)
+        syms[b, a : a + 32] *= 0.05
+        syms[b, a + 32 :] *= np.exp(1j * period * (1 if b % 2 == 0 else -1))
+    syms = syms + 0.01 * (rng.standard_normal(syms.shape) + 1j * rng.standard_normal(syms.shape))
+    return (torch.from_numpy(syms.astype(np.complex64)).to(dev),
+            torch.from_numpy(payloads).to(dev))

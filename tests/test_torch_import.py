@@ -32,6 +32,9 @@ import liquiddsp_tpu_torch.runtime.native, liquiddsp_tpu_torch.adapt_loop
 import liquiddsp_tpu_torch.engine, liquiddsp_tpu_torch.engine.estimators
 import liquiddsp_tpu_torch.engine.store, liquiddsp_tpu_torch.engine.knowledge
 import liquiddsp_tpu_torch.engine.bandits, liquiddsp_tpu_torch.engine.cognitive_engine
+import liquiddsp_tpu_torch.ops.agc, liquiddsp_tpu_torch.ops.nco, liquiddsp_tpu_torch.ops.fir
+import liquiddsp_tpu_torch.golden, liquiddsp_tpu_torch.grc.loader
+import liquiddsp_tpu_torch.apps.loopback_demo, liquiddsp_tpu_torch.apps.flowgraph_demo
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "liquiddsp_tpu" or m.startswith("liquiddsp_tpu.")]
 print("LEAKED", bad)
@@ -54,6 +57,25 @@ def test_no_source_file_imports_jax_or_reference_package():
         assert not pat.search(f.read_text()), f
 
 
+def test_every_port_descriptor_names_a_port_class():
+    """The port's YAML block descriptors and graphs are its own: every
+    factory is a class of liquiddsp_tpu_torch, every graph block one of the
+    port's descriptors."""
+    import yaml
+
+    grc = REPO / "liquiddsp_tpu_torch" / "grc"
+    descriptors = sorted(grc.glob("*.yaml"))
+    assert len(descriptors) == 6
+    for path in descriptors:
+        factory = yaml.safe_load(path.read_text())["factory"]
+        assert factory.startswith("liquiddsp_tpu_torch."), (path.name, factory)
+    names = {p.stem for p in descriptors}
+    graphs = sorted((grc / "graphs").glob("*.yaml"))
+    assert [g.name for g in graphs] == ["adaptation_loop.yaml", "loopback.yaml"]
+    for g in graphs:
+        assert {b["block"] for b in yaml.safe_load(g.read_text())["blocks"]} <= names
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: device=None is allowed to run")
@@ -62,7 +84,9 @@ def _no_gpu():
 @pytest.mark.parametrize("entry", ["framegen", "detect", "framesync_fixed", "phy_tables",
                                    "make_mesh", "long_stream", "dryrun_sharded", "FlexTx",
                                    "FlexRx", "FrameDetectorCC", "ChannelModel",
-                                   "config_space_loopback", "StreamingRx", "adapt_loop"])
+                                   "config_space_loopback", "StreamingRx", "adapt_loop",
+                                   "Flowgraph", "resampled_stream", "fade_slip_symbols",
+                                   "loopback_demo", "flowgraph_demo"])
 def test_entry_points_raise_without_gpu(entry):
     """device=None means the GPU; without one the call raises instead of
     running on the CPU."""
@@ -74,6 +98,8 @@ def test_entry_points_raise_without_gpu(entry):
     from liquiddsp_tpu_torch.config_space import config_space_loopback
     from liquiddsp_tpu_torch.phy import detector, framegen, framesync, tables
     from liquiddsp_tpu_torch.runtime import blocks, sim, stream
+    from liquiddsp_tpu_torch.apps import flowgraph_demo, loopback_demo
+    from liquiddsp_tpu_torch.grc.loader import Flowgraph
 
     cfg = FrameConfig(1, 0, 0, 64)
     x = torch.zeros((1, 2048), dtype=torch.complex64)
@@ -92,6 +118,12 @@ def test_entry_points_raise_without_gpu(entry):
         "config_space_loopback": lambda: config_space_loopback(),
         "StreamingRx": lambda: stream.StreamingRx(cfg, batch=1, chunk_len=4096),
         "adapt_loop": lambda: adapt_loop(batch=1, iters=1),
+        "Flowgraph": lambda: Flowgraph.load(str(REPO / "liquiddsp_tpu_torch/grc/graphs/loopback.yaml")),
+        "resampled_stream": lambda: streams.resampled_stream(
+            cfg, 20.0, 4, 8192, streams.RESAMPLED_PPMS, torch.Generator()),
+        "fade_slip_symbols": lambda: streams.fade_slip_symbols(cfg, 1, 0),
+        "loopback_demo": lambda: loopback_demo.main(["--packets", "1"]),
+        "flowgraph_demo": lambda: flowgraph_demo.main(["--packets", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
