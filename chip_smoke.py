@@ -100,6 +100,21 @@ Phases, each fatal on failure:
    packets, 8/8 bit-exact against the source) and adaptation_loop.yaml (50
    packets; the engine's decisions equal a CPU engine's fed the recorded
    packet infos), every block on the card; packets/s.
+18. (P11) the sharded receiver across processes: the sharded shape (8 x
+   524,288 in 8 time shards, both configs) on two processes of four shards
+   each on the one card (apps/sharded_rx_demo's worker, gloo for the barrier
+   and the metrics), the halo kernel pushing each rank's head into the left
+   rank's window through CUDA IPC: every rank's windows equal
+   halo_windows_ref of the whole stream exactly, the gathered slots equal the
+   one-process run by start, every frame bit-exact and exactly once (those
+   across the process boundary counted), the all-reduced LinkMetrics equal
+   one process's; three chunks of ShardedStreamingRx on the two processes
+   give the one-process frame set. The halo kernel's time on each rank, the
+   push and barrier, and the step on two processes against one.
+19. (P12) the demos on the card: apps/adaptation_demo for 50 packets (a CPU
+   engine fed its feedback decides alike) and apps/supervised_rx_demo with
+   two workers on the card, one killed once (12/12 frames exactly once,
+   restarts=[1, 0]).
 
 Every step of every path is driven with the kernels' launch counters set to 0
 just before and read just after, and fails unless each kernel of that path
@@ -109,7 +124,8 @@ and extract, once a block on the static path for recover (never on the SFO
 path), once a config group with an inner code for the Viterbi kernel (the
 speculative groups of P4 counted; in the loop, between the speculative
 groups and those plus the decoded header groups; once for P9's three
-candidates of every frame), once a sharded step for halo.
+candidates of every frame), once a sharded step for halo; in P11 each rank
+once a step, counted in the rank's own process.
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -161,6 +177,8 @@ from liquiddsp_tpu_torch.phy.framesync import (
 )
 from liquiddsp_tpu_torch.phy.tables import phy_tables
 from liquiddsp_tpu_torch.adapt_loop import adapt_loop, block_samples, channel_block
+from liquiddsp_tpu_torch.apps import adaptation_demo
+from liquiddsp_tpu_torch.apps.sharded_rx_demo import Job, spawn_ranks
 from liquiddsp_tpu_torch.engine.cognitive_engine import CognitiveEngineBlock
 from liquiddsp_tpu_torch.runtime.blocks import FlexRx, FlexTx
 from liquiddsp_tpu_torch.runtime.sim import ChannelModel
@@ -205,6 +223,10 @@ P6_ITERS, P6_SNR, P6_PAYLOAD, P7_ITERS = 50, 15.0, 32, 40
 P9_CFG, P9_FRAMES, P9_NOISE_VAR = FrameConfig(1, 1, 1, 64), 64, 0.01
 # P10: packets through the port's two flowgraphs
 P10_LOOPBACK, P10_ADAPT = 8, 50
+# P11: the sharded shape over a (2, 1) grid of processes on the card; P12:
+# the adaptation demo's packets
+P11_RANKS, P11_SEED, P11_REPS, P11_TIMEOUT_S = (2, 1), 11, 5, 600.0
+P12_PACKETS = 50
 # published peaks of one H100 SXM at its full power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -1467,6 +1489,178 @@ def flowgraph_run(card: str) -> dict:
     return {"P10 loopback graph": launches_loop, "P10 adaptation graph": launches_adapt}
 
 
+# ---------------------------------------------------------------------------
+# phases P11-P12: the receiver across processes, and the demos
+# ---------------------------------------------------------------------------
+
+
+def cfg_tuple(cfg) -> tuple:
+    return (cfg.modulation, cfg.inner_code, cfg.outer_code, cfg.payload_len)
+
+
+def same_stats(what, a, b) -> None:
+    """evm, rssi and cfo of the detected slots of two runs, each row's slots
+    in the order of their start: within 0.02 dB, 1e-3 dB, 1e-6 rad/sample."""
+    def ordered(res, name):
+        key = torch.where(res.mask, res.start.to(torch.int64), torch.iinfo(torch.int64).max)
+        order = torch.sort(key, dim=1, stable=True).indices
+        return torch.gather(getattr(res, name).cpu(), 1, order.cpu())
+    m = ordered(a, "mask")
+    for name, tol in (("evm", 0.02), ("rssi", 1e-3), ("cfo", 1e-6)):
+        d = float((ordered(a, name) - ordered(b, name))[m].abs().max())
+        if not d <= tol:
+            fail(f"{what}: {name} differs by {d} (tolerance {tol})")
+
+
+def distributed_p11(card: str) -> tuple[dict, dict]:
+    """P11: the sharded receiver over two processes on the card (four time
+    shards each, gloo for the barrier and the metrics, the halo pushed
+    across the process boundary by the kernel through CUDA IPC), both
+    configs at the sharded shape, then three chunks of ShardedStreamingRx;
+    each held against the one-process run on the same samples. Returns the
+    launches of every rank's step and the halo kernel's figures."""
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    print(f"P11 compute mode: {mode.stdout.strip()} (two processes on one card need Default)")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(P11_SEED)
+    mesh = make_mesh(n_time=SH_NTIME, n_ch=1, devices=[DEV])
+    t_local = SH_TOTAL // SH_NTIME
+    jobs, refs = [], []
+    for cfg, snr, share in CONFIGS:
+        stream = long_stream(cfg, snr, SH_BATCH, SH_TOTAL, gen, DEV)
+        k = shard_slots(cfg, t_local)
+        ref, _ = wall(lambda: sharded_framesync(stream[0], cfg, mesh, max_frames_per_shard=k))
+        one_ms = float(np.median([wall(lambda: sharded_framesync(
+            stream[0], cfg, mesh, max_frames_per_shard=k))[1] for _ in range(5)])) * 1e3
+        jobs.append(Job(f"P11 {config_name(cfg)}", cfg_tuple(cfg), stream[0].cpu().numpy(),
+                        SH_NTIME, 1, k=k, reps=P11_REPS))
+        refs.append((cfg, snr, share, stream, ref, one_ms, k))
+    st_cfg, st_snr = CONFIGS[0][0], CONFIGS[0][1]
+    st_x, st_pay, st_starts, st_whole = long_stream(st_cfg, st_snr, SH_BATCH, 3 * SH_TOTAL, gen, DEV)
+    st_window, st_k = streaming_shapes(st_cfg)
+    rx = ShardedStreamingRx(st_cfg, mesh, batch=SH_BATCH, chunk_len=SH_TOTAL, max_frames_per_shard=st_k)
+    st_ref = [rx.step(st_x[:, c * SH_TOTAL : (c + 1) * SH_TOTAL])[0] for c in range(3)]
+    jobs.append(Job("P11 streaming " + config_name(st_cfg), cfg_tuple(st_cfg), st_x.cpu().numpy(),
+                    SH_NTIME, 1, k=st_k, chunk=SH_TOTAL))
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    outs = spawn_ranks(P11_RANKS[0] * P11_RANKS[1], jobs, f"cuda:{DEV.index}", ranks=P11_RANKS,
+                       timeout_s=P11_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    launches, halo = {}, {"also_checked": [], "cross_process": []}
+    for (cfg, snr, share, stream, ref, one_ms, k), out in zip(refs, outs):
+        what = out["name"]
+        x, payloads, starts, whole = stream
+        for r, counts in enumerate(out["launches"]):
+            if counts != block_launches(cfg, 1):
+                fail(f"{what}: rank {r} launched {counts}, expected {block_launches(cfg, 1)}")
+            launches[f"{what} rank {r}"] = counts
+        if out["windows_exact"] != [True] * len(out["launches"]):
+            fail(f"{what}: the windows after the push differ from halo_windows_ref")
+        got = out["res"]
+        same_results(f"{what}, two processes against one", by_start(got), by_start(ref))
+        same_stats(f"{what}, two processes against one", got, ref)
+        ov = fs.FrameSpec(cfg).frame_samples - 1
+        n_ok, expected, n_cross = check_stream_frames(
+            what, got.payload_valid.to(DEV), got.start.to(DEV), got.payload.to(DEV), payloads,
+            starts, whole, share, t_local, ov)
+        # frames that run from rank 0's block into rank 1's
+        edge = SH_TOTAL // P11_RANKS[0]
+        across = int((got.payload_valid & (got.start >= edge - ov) & (got.start < edge)).sum())
+        if across == 0:
+            fail(f"{what}: no decoded frame runs across the process boundary")
+        want = LinkMetrics.from_results(ref, SH_TOTAL)
+        m = out["metrics"]
+        for name in ("samples", "frames_detected", "headers_valid", "payloads_valid"):
+            if m[name] != int(getattr(want, name)):
+                fail(f"{what}: all-reduced {name} {m[name]} against one process's {int(getattr(want, name))}")
+        for name in ("sum_evm_db", "sum_rssi_db"):
+            ref_v = float(getattr(want, name))
+            if not abs(m[name] - ref_v) <= 1e-3 * max(1.0, abs(ref_v)):
+                fail(f"{what}: all-reduced {name} {m[name]} against one process's {ref_v}")
+        b_local, n_local, w = SH_BATCH, SH_NTIME // P11_RANKS[0], t_local + ov
+        bms, by = bound(b_local * n_local * t_local * 8 + n_local * b_local * w * 8, 0)
+        halo["cross_process"].append({
+            "shapes": f"x_local [{b_local}, {n_local * t_local}] c64 -> [{n_local}, {b_local}, {w}] "
+                      f"c64 a rank, the head of {b_local} x {ov} pushed across processes",
+            "ms": out["kernel_ms"], "bound_ms": bms, "bound_by": by,
+            "plain_ms": out["plain_ms"], "library_ms": None,
+            "push_and_barrier_ms": out["push_ms"], "step_ms": out["step_ms"],
+            "one_process_step_ms": one_ms,
+        })
+        halo["also_checked"].append(
+            f"P11 {config_name(cfg)}: x_local [{b_local}, {n_local * t_local}] on each of 2 "
+            f"processes, n_time {n_local}, ov {ov}, pushed across the process boundary")
+        print(f"{what} on 2 processes x {n_local} shards (gloo barrier, CUDA IPC push): "
+              f"{n_ok}/{expected} whole frames exactly once and bit-exact, {n_cross} across a shard "
+              f"boundary, {across} across the process boundary; windows equal halo_windows_ref on "
+              f"both ranks; gathered slots equal the one-process run by start; all-reduced "
+              f"LinkMetrics equal one process's; launches by rank {out['launches']}; halo kernel "
+              f"{[round(v, 4) for v in out['kernel_ms']]} ms by rank (bound {bms:.4f}; the plain version "
+              f"with the heads through gloo {[round(v, 3) for v in out['plain_ms']]}), push + "
+              f"barrier {[round(v, 3) for v in out['push_ms']]} ms, step "
+              f"{[round(v, 2) for v in out['step_ms']]} ms on two processes against {one_ms:.2f} "
+              f"ms on one [{card}]")
+    st = outs[-1]
+    what = st["name"]
+    for c, step in enumerate(st["steps"]):
+        for r, counts in enumerate(step["launches"]):
+            if counts != block_launches(st_cfg, 1):
+                fail(f"{what} step {c}: rank {r} launched {counts}")
+    for r, counts in enumerate(st["launches"]):
+        launches[f"{what} rank {r} (3 steps)"] = counts
+    got = [step["res"] for step in st["steps"]]
+    j = Joined(got)
+    n_ok, expected, _ = check_stream_frames(
+        what, j.payload_valid.to(DEV), j.start.to(DEV), j.payload.to(DEV), st_pay, st_starts,
+        st_whole, 1.0)
+    if frame_set(got) != frame_set(st_ref):
+        fail(f"{what}: two processes decoded another frame set than one")
+    if sum(step["metrics"]["payloads_valid"] for step in st["steps"]) != n_ok:
+        fail(f"{what}: the all-reduced metrics do not count the frames decoded")
+    print(f"{what}, 3 chunks of {SH_BATCH} x {SH_TOTAL} on 2 processes: {n_ok}/{expected} whole "
+          f"frames exactly once and bit-exact, the frame set of one process; P11 spawn to end "
+          f"{spawn_s:.1f} s [{card}]")
+    return launches, halo
+
+
+def demos_p12(card: str) -> dict:
+    """P12: the adaptation demo for 50 packets on the card, its feedback
+    replayed into a CPU engine; the supervised demo with two workers on the
+    card, one killed once."""
+    def want(out):
+        coded = sum(1 for fb in out["feedback"] if fb["header_valid"] and fb["inner_code"])
+        return {"correlator": P12_PACKETS, "extract": P12_PACKETS, "recover": P12_PACKETS,
+                "viterbi": coded, "halo": 0}
+
+    (out, t_adapt), got = counted_by("P12 adaptation demo", lambda o: want(o[0]), lambda: wall(
+        lambda: adaptation_demo.main(["--packets", str(P12_PACKETS)])))
+    ref = CognitiveEngineBlock(ce_type="epsilon_greedy", seed=0)
+    for i, (fb, dec) in enumerate(zip(out["feedback"], out["decisions"])):
+        if ref.handler(fb) != dec:
+            fail(f"P12 adaptation demo: a CPU engine fed the feedback decides otherwise at packet {i}")
+    valid = sum(fb["payload_valid"] for fb in out["feedback"])
+    print(f"P12 adaptation demo: {P12_PACKETS} packets, {valid} valid payloads, "
+          f"{len({tuple(d.values()) for d in out['decisions']})} configs decided, "
+          f"{P12_PACKETS / t_adapt:.1f} packets/s, a CPU engine fed the feedback decides alike; "
+          f"launches {got} [{card}]")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "liquiddsp_tpu_torch.apps.supervised_rx_demo", "--workers", "2",
+         "--chunks", "6", "--kill", "0"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in proc.stdout.splitlines():
+        if line.startswith(("worker", "total")):
+            print("  " + line)
+    if proc.returncode != 0 or "total: 12/12 frames decoded exactly once; restarts=[1, 0]" not in proc.stdout:
+        fail(f"P12 supervised demo: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    print(f"P12 supervised demo on the card: 12/12 frames decoded exactly once, restarts=[1, 0], "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return {"P12 adaptation demo": got}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = card_line()
@@ -1672,6 +1866,14 @@ def main() -> None:
     launches.update(slip_retry_run(card))
     launches.update(flowgraph_run(card))
     print(f"P9 and P10 done ({time.perf_counter() - t_start:.0f} s)")
+    p11_launches, p11_halo = distributed_p11(card)
+    launches.update(p11_launches)
+    halo_entry = next(k for k in kernels if k["name"] == "halo")
+    halo_entry["also_checked"] += p11_halo["also_checked"]
+    halo_entry["cross_process"] = p11_halo["cross_process"]
+    print(f"P11 done ({time.perf_counter() - t_start:.0f} s)")
+    launches.update(demos_p12(card))
+    print(f"P12 done ({time.perf_counter() - t_start:.0f} s)")
 
     for k in kernels:
         k["launches_by_config"] = {label: d[k["name"]] for label, d in launches.items()}

@@ -8,7 +8,9 @@ that is taken only for tensors that lie on the CPU.
 
 Ported so far: the single-device block receiver, TX ``phy.framegen.framegen``
 -> RX ``phy.framesync.framesync_fixed``, and the time-sharded receiver on one
-device: ``parallel.halo.sharded_framesync``, its streaming wrapper
+device or over the ranks of a process group (``parallel.mesh.init_distributed``,
+the halo kernel pushing into a peer process's window through CUDA IPC):
+``parallel.halo.sharded_framesync``, its streaming wrapper
 ``runtime.distributed_stream.ShardedStreamingRx`` and
 ``utils.metrics.LinkMetrics``; the self-describing receiver
 ``runtime.blocks.FlexRx``; the continuous streaming receiver
@@ -17,10 +19,11 @@ device: ``parallel.halo.sharded_framesync``, its streaming wrapper
 closed adaptation loop ``adapt_loop.adapt_loop``; the resampled receiver
 (``ops.resample.arbitrary_groups`` ahead of ``framesync_fixed``) with the
 rest of ``ops`` (AGC, NCO, FIR, the integer resamplers); the golden
-oracle's binding ``golden``; and the flowgraph layer ``grc`` with its
-demos under ``apps``. Entry points run on the
-GPU unless the caller passes ``device="cpu"``. ``dryrun_sharded(n_time)`` is
-the quick proof of the sharded path.
+oracle's binding ``golden``; and the flowgraph layer ``grc``, with the
+demos under ``apps`` (loopback, flowgraph, adaptation, supervised rx, and
+``sharded_rx_demo``, the launcher of the receiver across processes). Entry
+points run on the GPU unless the caller passes ``device="cpu"``.
+``dryrun_sharded(n_time)`` is the quick proof of the sharded path.
 """
 
 from liquiddsp_tpu_torch.core.config import (  # noqa: F401

@@ -18,6 +18,7 @@ import json
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -47,8 +48,9 @@ _ARGTYPES = {
     "lq_recover_symbols": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
     # lam, warp signs, dec, bits, stamps or NULL, B, steps, dec row stride, stream
     "lq_viterbi": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
-    # x, windows, left neighbours' windows, B, n_time, T_local, ov, row stride, stream
-    "lq_halo_windows": [_vp, _vp, _vp, _i, _i, _i, _i, _ll, _vp],
+    # x, windows, left rank's windows or NULL, B, n_time, T_local, ov, row stride,
+    # zero_last, stream
+    "lq_halo_windows": [_vp, _vp, _vp, _i, _i, _i, _i, _ll, _i, _vp],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -77,7 +79,12 @@ def build() -> Path:
     sources is reused. The compiler's output (registers, shared memory and
     spills of each kernel) is kept in ``build_log`` and in a ``.log`` file
     beside the library, from which a later process that reuses the library
-    fills ``build_log``."""
+    fills ``build_log``.
+
+    Several processes may build at once (the ranks of a distributed run on a
+    fresh tree): each compiles its objects into a directory of its own and
+    links into a file of its own, and the library appears under its final
+    name by one atomic rename, so every process loads a whole library."""
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
@@ -88,9 +95,18 @@ def build() -> Path:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = toolkit_exe("nvcc")
+    obj_dir = Path(tempfile.mkdtemp(prefix=f"obj.{os.getpid()}.", dir=BUILD_DIR))
+    try:
+        _compile_and_link(nvcc, obj_dir, lib_path, log_path)
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    return lib_path
+
+
+def _compile_and_link(nvcc: str, obj_dir: Path, lib_path: Path, log_path: Path) -> None:
     procs = []
     for name in SOURCES:
-        obj = BUILD_DIR / (name + ".o")
+        obj = obj_dir / (name + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -104,16 +120,18 @@ def build() -> Path:
         objs.append(str(obj))
     if failed:
         raise RuntimeError("\n".join(failed))
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    tmp = obj_dir / lib_path.name
     link = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    log_path.write_text(json.dumps(build_log))  # before the library: whoever finds the one finds the other
+    log_tmp = obj_dir / log_path.name
+    log_tmp.write_text(json.dumps(build_log))
+    # the log before the library: whoever finds the one finds the other
+    os.replace(log_tmp, log_path)
     os.replace(tmp, lib_path)
-    return lib_path
 
 
 def lib() -> ctypes.CDLL:

@@ -6,7 +6,8 @@ Counterpart of ``liquiddsp_tpu/utils/metrics.py``:
   ok, EVM, RSSI) as 0-d tensors on the results' device: one scalar bundle per
   block, no per-frame host traffic. On one device the sum over the
   [B, n_time*K] slots of a sharded result is already the sum over the mesh;
-  the reduction across cards (``all_reduce``) comes with the multi-card mesh.
+  over the ranks of a distributed mesh ``psum`` sums each rank's metrics
+  with one ``all_reduce``.
 - ``MetricsCollector``: host-side accumulator with per-config receive
   counters and rate reporting.
 - ``profile_trace``: context manager around ``torch.profiler``.
@@ -21,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from liquiddsp_tpu_torch.core.config import (
     NUM_INNER_CODES,
@@ -53,6 +55,23 @@ class LinkMetrics:
             sum_evm_db=torch.sum(torch.where(hv, res.evm, zero)),
             sum_rssi_db=torch.sum(torch.where(hv, res.rssi, zero)),
         )
+
+    def psum(self, mesh) -> "LinkMetrics":
+        """The metrics summed over the ranks of ``mesh``, on this rank's
+        device: one ``all_reduce`` of the six values packed as float64, which
+        holds the int32 counts exactly. On gloo the pack goes through the
+        host. A one-process mesh returns the metrics unchanged."""
+        if mesh.world == 1:
+            return self
+        names = [f.name for f in dataclasses.fields(self)]
+        dev = self.samples.device
+        on_card = dist.get_backend(mesh.group) == "nccl"
+        pack = torch.stack([getattr(self, n).to(torch.float64) for n in names])
+        pack = pack if on_card else pack.cpu()
+        dist.all_reduce(pack, group=mesh.group)
+        pack = pack.to(dev)
+        return LinkMetrics(**{
+            n: pack[i].to(getattr(self, n).dtype) for i, n in enumerate(names)})
 
 
 class MetricsCollector:

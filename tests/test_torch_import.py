@@ -35,6 +35,8 @@ import liquiddsp_tpu_torch.engine.bandits, liquiddsp_tpu_torch.engine.cognitive_
 import liquiddsp_tpu_torch.ops.agc, liquiddsp_tpu_torch.ops.nco, liquiddsp_tpu_torch.ops.fir
 import liquiddsp_tpu_torch.golden, liquiddsp_tpu_torch.grc.loader
 import liquiddsp_tpu_torch.apps.loopback_demo, liquiddsp_tpu_torch.apps.flowgraph_demo
+import liquiddsp_tpu_torch.apps.adaptation_demo, liquiddsp_tpu_torch.apps.supervised_rx_demo
+import liquiddsp_tpu_torch.apps.sharded_rx_demo, liquiddsp_tpu_torch.parallel.peer
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "liquiddsp_tpu" or m.startswith("liquiddsp_tpu.")]
 print("LEAKED", bad)
@@ -160,10 +162,11 @@ def test_sharded_receiver_raises_on_a_gpu_mesh_without_gpu_and_runs_on_cpu():
 
 
 def test_unported_paths_raise_not_implemented():
-    """What still waits raises: a mesh over several devices. What this
-    package has ported since no longer does: the sample-clock-drift path for
-    frames of 2200 symbols and more, the differential modems, Reed-Solomon,
-    the Hamming and SEC-DED codes."""
+    """What is not built raises: a mesh over several devices in one process
+    (a card is a process of its own, init_distributed). What this package
+    has ported since no longer does: the sample-clock-drift path for frames
+    of 2200 symbols and more, the differential modems, Reed-Solomon, the
+    Hamming and SEC-DED codes."""
     from liquiddsp_tpu_torch import FrameConfig
     from liquiddsp_tpu_torch.ops import modem
     from liquiddsp_tpu_torch.ops.fec import registry
@@ -174,7 +177,7 @@ def test_unported_paths_raise_not_implemented():
     x = torch.zeros((1, 8192), dtype=torch.complex64)
     res = framesync.framesync_fixed(x, long_cfg, 1, device="cpu")
     assert res.symbols.shape == (1, 1, 2416) and not bool(res.mask.any())
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(NotImplementedError, match="init_distributed"):
         make_mesh(devices=["cpu", "meta"])
 
     assert modem.modulate(torch.zeros(4, dtype=torch.int32), 4).shape == (4,)  # DPSK2

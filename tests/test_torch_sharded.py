@@ -122,11 +122,12 @@ def test_mesh_shapes_and_cells():
             tmesh.make_mesh(**bad)
 
 
-def test_mesh_over_several_devices_is_not_ported():
-    """Refused where the mesh is built, so no receiver ever sees one."""
-    with pytest.raises(NotImplementedError, match="A.4"):
+def test_mesh_over_several_devices_in_one_process_is_refused():
+    """Refused where the mesh is built, so no receiver ever sees one: a card
+    is a process of its own (init_distributed)."""
+    with pytest.raises(NotImplementedError, match="init_distributed"):
         tmesh.make_mesh(n_time=2, n_ch=1, devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(NotImplementedError, match="init_distributed"):
         tmesh.make_mesh(devices=["cuda:0", "cuda:1"])
 
 
