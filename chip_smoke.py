@@ -28,7 +28,12 @@ Phases, each fatal on failure:
    block-Toeplitz form, in float32 and again with TF32 allowed; halo: pad +
    unfold made contiguous). The correlator's SASS must hold tensor-core
    instructions; its bound is that of its three bf16 products on the tensor
-   cores, with the float32 CUDA-core bound beside it.
+   cores, with the float32 CUDA-core bound beside it. The halo kernel's
+   cross-process half at a P11 rank's block: the launch that stores the
+   left rank's flag once its push has landed (windows, push, flag and block
+   count exact), and halo_order, the wait kernel of a step's order, against
+   its plain version and holding its stream until another stream stores
+   its flag.
 4. main path: for both receiver configs (QPSK uncoded; QPSK + V27 + Golay),
    framegen 64 payloads, lay out a 64 x 65,536 stream with AWGN, decode it
    with framesync_fixed, and hold every payload against what was sent. The
@@ -107,15 +112,18 @@ Phases, each fatal on failure:
    packet infos), every block on the card; packets/s.
 18. (P11) the sharded receiver across processes: the sharded shape (8 x
    524,288 in 8 time shards, both configs) on two processes of four shards
-   each on the one card (apps/sharded_rx_demo's worker, gloo for the barrier
-   and the metrics), the halo kernel pushing each rank's head into the left
-   rank's window through CUDA IPC: every rank's windows equal
+   each on the one card (apps/sharded_rx_demo's worker, gloo for setup and
+   the metrics), the halo kernel pushing each rank's head into the left
+   rank's window through CUDA IPC, each step ordered by flags on the card
+   (halo_order, no host barrier): every rank's windows equal
    halo_windows_ref of the whole stream exactly, the gathered slots equal the
    one-process run by start, every frame bit-exact and exactly once (those
    across the process boundary counted), the all-reduced LinkMetrics equal
    one process's; three chunks of ShardedStreamingRx on the two processes
-   give the one-process frame set. The halo kernel's time on each rank, the
-   push and barrier, and the step on two processes against one.
+   give the one-process frame set. The compute mode, the stream memory
+   operations attribute and the order's mechanism; the halo kernel's time on
+   each rank with both launching together and with each alone, a step's push
+   + wait by CUDA events, and the step on two processes against one.
 19. (P12) the demos on the card: apps/adaptation_demo for 50 packets (a CPU
    engine fed its feedback decides alike) and apps/supervised_rx_demo with
    two workers on the card, one killed once (12/12 frames exactly once,
@@ -130,7 +138,10 @@ path), once a config group with an inner code for the Viterbi kernel (the
 speculative groups of P4 counted; in the loop, between the speculative
 groups and those plus the decoded header groups; once for P9's three
 candidates of every frame), once a sharded step for halo; in P11 each rank
-once a step, counted in the rank's own process.
+once a step, counted in the rank's own process, and halo_wait (the order's
+wait kernel, checked in phase 3 with the halo kernel's flag) once a step
+before the halo kernel and once after it on a rank with a rank to its
+right.
 
 The line before the last is a JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}.
@@ -138,6 +149,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import random
@@ -161,7 +173,13 @@ from liquiddsp_tpu_torch.kernels.correlator import (
     correlate_reduced_ref,
 )
 from liquiddsp_tpu_torch.kernels.extract import extract_windows, extract_windows_ref
-from liquiddsp_tpu_torch.kernels.halo import halo_windows, halo_windows_ref
+from liquiddsp_tpu_torch.kernels.halo import (
+    halo_order,
+    halo_order_ref,
+    halo_windows,
+    halo_windows_into,
+    halo_windows_ref,
+)
 from liquiddsp_tpu_torch.kernels.recover import (
     recover_symbols_planes,
     recover_symbols_planes_ref,
@@ -714,6 +732,69 @@ def check_halo(x: torch.Tensor, n_time: int, ovs, also, gen: torch.Generator) ->
     return entry
 
 
+def check_halo_order(x: torch.Tensor, n_time: int, ov: int) -> tuple[dict, str]:
+    """The halo kernel's cross-process half on one card. (1) The halo kernel
+    that stores a flag once its push has landed, at ``x``, the block of a
+    P11 rank with a left rank and the global last shard: its windows equal
+    the plain version, its push the head, the flag its value and the block
+    count 0 again. (2) halo_order, the receive semaphore's wait: a store and
+    a wait that holds against halo_order_ref (exact), and a wait that does
+    not hold yet holding its stream until another stream stores the flag.
+    Returns the wait kernel's entry and what (1) checked."""
+    b, t = x.shape
+    t_local = t // n_time
+    win = torch.empty((n_time, b, t_local + ov), dtype=torch.complex64, device=DEV)
+    left = torch.zeros_like(win)
+    flags = torch.zeros(4, dtype=torch.int64, device=DEV)
+    halo_windows_into(x, n_time, ov, win, left, True, flags[0], 7, flags[1])
+    torch.cuda.synchronize()
+    if not torch.equal(win, halo_windows_ref(x, n_time, ov)):
+        fail("the halo kernel with a flag differs from the plain version")
+    if not torch.equal(left[n_time - 1, :, t_local:], x[:, :ov]):
+        fail("the halo kernel with a flag pushed another head into the left window")
+    if flags[:2].tolist() != [7, 0]:
+        fail(f"the halo kernel left its flag and block count at {flags[:2].tolist()}, not [7, 0]")
+    flags.zero_()
+    flags[2] = 3
+    ref = flags.cpu()
+    halo_order(flags[0], 5, flags[2], 3)
+    halo_order_ref(ref[0], 5, ref[2], 3)
+    err = float((flags.cpu() - ref).abs().max())
+    if err != 0:
+        fail(f"halo_order stored {flags.tolist()}, the plain version {ref.tolist()}")
+    waiter, storer = torch.cuda.Stream(DEV), torch.cuda.Stream(DEV)
+    done = torch.cuda.Event()
+    with torch.cuda.stream(waiter):
+        halo_order(None, 0, flags[3], 1)
+        done.record()
+    time.sleep(0.05)
+    if done.query():
+        fail("halo_order let its stream go on before its flag held")
+    with torch.cuda.stream(storer):
+        halo_order(flags[3], 1, None, 0)
+    deadline = time.monotonic() + 10.0
+    while not done.query():
+        if time.monotonic() > deadline:
+            fail("halo_order still holds its stream 10 s after its flag was stored")
+        time.sleep(1e-3)
+    bms, by = bound(16, 0)  # one flag read, one written
+    entry = {
+        "name": "halo_wait", "route": "cuda",
+        "source": "liquiddsp_tpu_torch/csrc/halo.cu",
+        "replaces": "liquiddsp_tpu/parallel/halo.py:110",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: halo_order(flags[0], 5, flags[2], 3), 10),
+        "plain_ms": time_ms(lambda: halo_order_ref(flags[0], 5, flags[2], 3), 10),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "shapes": "two int64 flags: a store, then a wait that holds at once",
+        "note": "the receive-semaphore wait of _halo_dma_kernel (rdr.wait(), "
+                "liquiddsp_tpu/parallel/halo.py:84): one thread, st.release.sys, then "
+                "ld.acquire.sys and __nanosleep until the flag holds",
+    }
+    return entry, (f"with its flag: x [{b}, {t}], n_time={n_time}, ov={ov}, pushed into a "
+                   f"second buffer")
+
+
 def check_path_shapes(kernels, label, x, n_syms: int, k: int, gen: torch.Generator,
                       recover: bool = True) -> None:
     """Kernels 1-3 against their plain versions at the shapes one more path
@@ -859,11 +940,20 @@ def check_against_cpu(x, res, cfg, max_frames: int) -> None:
                  by_start(res, slice(0, 2)))
 
 
-def block_launches(cfg, halo: int) -> dict:
+def block_launches(cfg, halo: int, waits: int = 0) -> dict:
     """What one step of framesync_fixed (``halo`` 0) or sharded_framesync
-    (``halo`` 1) launches for frames of ``cfg`` on the static path."""
+    (``halo`` 1) launches for frames of ``cfg`` on the static path.
+    ``waits``: the launches of halo_order (``halo_wait``) in a step of a
+    rank of several (P11): one before its halo kernel, and one after it on
+    a rank that has a rank to its right (``rank_waits``)."""
     return {"correlator": 1, "extract": 1, "recover": 1,
-            "viterbi": 1 if cfg.inner_code else 0, "halo": halo}
+            "viterbi": 1 if cfg.inner_code else 0, "halo": halo, "halo_wait": waits}
+
+
+def rank_waits(rank: int, ranks: tuple[int, int]) -> int:
+    """halo_order launches in one step of ``rank`` on a (P_t, P_c) grid:
+    none where the time axis is not split over ranks."""
+    return 0 if ranks[0] == 1 else 1 + (rank // ranks[1] < ranks[0] - 1)
 
 
 def counted(what: str, want: dict, step):
@@ -1085,7 +1175,7 @@ def sweep_run(label: str, payload_len: int, mods, shards: int, card: str) -> dic
     n_syms = fs.max_frame_spec(payload_len).frame_syms
     static = n_syms < SFO_AUTO_SYMS
     want = {"correlator": blocks, "extract": blocks, "recover": blocks if static else 0,
-            "viterbi": sum(1 for c in configs if c[1]), "halo": 0}
+            "viterbi": sum(1 for c in configs if c[1]), "halo": 0, "halo_wait": 0}
     t0 = time.perf_counter()
     res, got = counted(label, want, lambda: cs.config_space_loopback(
         payload_len=payload_len, mods=mods, shards=shards, device=DEV))
@@ -1111,7 +1201,7 @@ def sfo_run(stream, card: str) -> dict:
     for track in ("auto", False):
         label = f"P3 SFO track_sfo={track!r}"
         want = {"correlator": 1, "extract": 1, "recover": 0 if track else 1,
-                "viterbi": 0, "halo": 0}
+                "viterbi": 0, "halo": 0, "halo_wait": 0}
         # track=False: the payload carrier tracker, which comes after symbol
         # recovery, slips on about a quarter of random 1200-byte QAM16
         # payloads even without noise or drift, in the JAX package too
@@ -1166,7 +1256,7 @@ def flexrx_run(cfgs, block, card: str) -> dict:
     n_frames = payloads.shape[1]
     rx = FlexRx(max_payload_len=P4_PAYLOAD, max_frames_per_block=n_frames + 2)
     n_inner = sum(1 for c in cfgs if c[1])
-    base = {"correlator": 1, "extract": 1, "recover": 0, "halo": 0}
+    base = {"correlator": 1, "extract": 1, "recover": 0, "halo": 0, "halo_wait": 0}
     # a channel is one config group; speculation adds one group a channel
     infos, got = counted("P4 FlexRx", {**base, "viterbi": n_inner}, lambda: rx.work(x))
     expected = [(m, i, o, P4_PAYLOAD) for m, i, o in cfgs]
@@ -1389,7 +1479,8 @@ def loop_want(out: dict) -> dict:
     spec = sum(len({c for c in cmd if c[1]}) for cmd in out["commanded"])
     extra = sum(len({(f["modulation"], f["inner_code"], f["outer_code"]) for f in fbs
                      if f["header_valid"] and f["inner_code"]}) for fbs in out["feedback"])
-    return {"correlator": n, "extract": n, "recover": n, "viterbi": (spec, spec + extra), "halo": 0}
+    return {"correlator": n, "extract": n, "recover": n, "viterbi": (spec, spec + extra),
+            "halo": 0, "halo_wait": 0}
 
 
 def loop_run(label: str, iters: int, pipeline: bool, dynamic: bool, card: str):
@@ -1515,7 +1606,7 @@ def slip_retry_run(card: str) -> dict:
     """P9: decode_payload_symbols on the faded and slipped frames, with and
     without slip_retry, each one counted step; both against a CPU run."""
     syms, payloads = fade_slip_symbols(P9_CFG, P9_FRAMES, seed=9, device=DEV)
-    want = {"correlator": 0, "extract": 0, "recover": 0, "viterbi": 1, "halo": 0}
+    want = {"correlator": 0, "extract": 0, "recover": 0, "viterbi": 1, "halo": 0, "halo_wait": 0}
     launches, n = {}, {}
     for retry in (True, False):
         label = f"P9 slip_retry={retry}"
@@ -1543,7 +1634,7 @@ def flowgraph_run(card: str) -> dict:
     got_pay = []
     fg.blocks["rx"].bus.subscribe("payload_data", lambda pdu: got_pay.append(np.asarray(pdu.data)))
     (_, t_loop), launches_loop = counted(
-        "P10 loopback graph", {**front(P10_LOOPBACK), "viterbi": 0, "halo": 0},
+        "P10 loopback graph", {**front(P10_LOOPBACK), "viterbi": 0, "halo": 0, "halo_wait": 0},
         lambda: wall(lambda: fg.run(P10_LOOPBACK)))
     sent = fg.blocks["src"].sent
     if len(got_pay) != P10_LOOPBACK or not all(np.array_equal(a, b) for a, b in zip(sent, got_pay)):
@@ -1565,7 +1656,7 @@ def flowgraph_run(card: str) -> dict:
     def want(_):
         coded = sum(len({(d["modulation"], d["inner_code"], d["outer_code"], d["payload_len"])
                          for d in st if d["inner_code"]}) for st in steps)
-        return {**front(P10_ADAPT), "viterbi": coded, "halo": 0}
+        return {**front(P10_ADAPT), "viterbi": coded, "halo": 0, "halo_wait": 0}
 
     (_, t_adapt), launches_adapt = counted_by("P10 adaptation graph", want, lambda: wall(run))
     if ce.num_packets != len(infos) or len(decisions) != len(infos) or not infos:
@@ -1609,16 +1700,39 @@ def same_stats(what, a, b) -> None:
             fail(f"{what}: {name} differs by {d} (tolerance {tol})")
 
 
+def stream_mem_ops_attributes() -> str:
+    """The card's attributes that say whether CUDA's stream memory
+    operations (cuStreamWaitValue64) could order a step instead of the
+    kernels' own flags, read through the driver library."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    dev = ctypes.c_int()
+    if cu.cuDeviceGet(ctypes.byref(dev), DEV.index) != 0:
+        fail("cuDeviceGet failed")
+    out = []
+    for name, attr in (("CU_DEVICE_ATTRIBUTE_CAN_USE_STREAM_MEM_OPS_V1", 92),
+                       ("CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS", 122)):
+        value = ctypes.c_int()
+        rc = cu.cuDeviceGetAttribute(ctypes.byref(value), attr, dev)
+        if rc != 0:
+            fail(f"reading {name}: CUDA driver error {rc}")
+        out.append(f"{name} = {value.value}")
+    return ", ".join(out)
+
+
 def distributed_p11(card: str) -> tuple[dict, dict]:
     """P11: the sharded receiver over two processes on the card (four time
-    shards each, gloo for the barrier and the metrics, the halo pushed
-    across the process boundary by the kernel through CUDA IPC), both
+    shards each, gloo for setup and the metrics, the halo pushed across
+    the process boundary by the kernel through CUDA IPC and ordered by
+    flags on the card), both
     configs at the sharded shape, then three chunks of ShardedStreamingRx;
     each held against the one-process run on the same samples. Returns the
     launches of every rank's step and the halo kernel's figures."""
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60)
     print(f"P11 compute mode: {mode.stdout.strip()} (two processes on one card need Default)")
+    print(f"P11 order of a step: flags on the card, stored by the halo kernel's last block and by "
+          f"halo_order (st.release.sys), awaited by halo_order polling (ld.acquire.sys); "
+          f"{stream_mem_ops_attributes()} (cuStreamWaitValue64 is not used)")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(P11_SEED)
     mesh = make_mesh(n_time=SH_NTIME, n_ch=1, devices=[DEV])
@@ -1651,8 +1765,9 @@ def distributed_p11(card: str) -> tuple[dict, dict]:
         what = out["name"]
         x, payloads, starts, whole = stream
         for r, counts in enumerate(out["launches"]):
-            if counts != block_launches(cfg, 1):
-                fail(f"{what}: rank {r} launched {counts}, expected {block_launches(cfg, 1)}")
+            want = block_launches(cfg, 1, rank_waits(r, P11_RANKS))
+            if counts != want:
+                fail(f"{what}: rank {r} launched {counts}, expected {want}")
             launches[f"{what} rank {r}"] = counts
         if out["windows_exact"] != [True] * len(out["launches"]):
             fail(f"{what}: the windows after the push differ from halo_windows_ref")
@@ -1682,29 +1797,30 @@ def distributed_p11(card: str) -> tuple[dict, dict]:
         halo["cross_process"].append({
             "shapes": f"x_local [{b_local}, {n_local * t_local}] c64 -> [{n_local}, {b_local}, {w}] "
                       f"c64 a rank, the head of {b_local} x {ov} pushed across processes",
-            "ms": out["kernel_ms"], "bound_ms": bms, "bound_by": by,
-            "plain_ms": out["plain_ms"], "library_ms": None,
-            "push_and_barrier_ms": out["push_ms"], "step_ms": out["step_ms"],
+            "ms": out["kernel_ms"], "ms_alone": out["kernel_alone_ms"], "bound_ms": bms,
+            "bound_by": by, "plain_ms": out["plain_ms"], "library_ms": None,
+            "push_and_wait_ms": out["push_wait_ms"], "step_ms": out["step_ms"],
             "one_process_step_ms": one_ms,
         })
         halo["also_checked"].append(
             f"P11 {config_name(cfg)}: x_local [{b_local}, {n_local * t_local}] on each of 2 "
             f"processes, n_time {n_local}, ov {ov}, pushed across the process boundary")
-        print(f"{what} on 2 processes x {n_local} shards (gloo barrier, CUDA IPC push): "
+        print(f"{what} on 2 processes x {n_local} shards (CUDA IPC push, flags on the card): "
               f"{n_ok}/{expected} whole frames exactly once and bit-exact, {n_cross} across a shard "
               f"boundary, {across} across the process boundary; windows equal halo_windows_ref on "
               f"both ranks; gathered slots equal the one-process run by start; all-reduced "
               f"LinkMetrics equal one process's; launches by rank {out['launches']}; halo kernel "
-              f"{[round(v, 4) for v in out['kernel_ms']]} ms by rank (bound {bms:.4f}; the plain version "
-              f"with the heads through gloo {[round(v, 3) for v in out['plain_ms']]}), push + "
-              f"barrier {[round(v, 3) for v in out['push_ms']]} ms, step "
+              f"{[round(v, 4) for v in out['kernel_ms']]} ms by rank launching together, "
+              f"{[round(v, 4) for v in out['kernel_alone_ms']]} alone (bound {bms:.4f}; the plain "
+              f"version with the heads through gloo {[round(v, 3) for v in out['plain_ms']]}), "
+              f"push + wait {[round(v, 4) for v in out['push_wait_ms']]} ms, step "
               f"{[round(v, 2) for v in out['step_ms']]} ms on two processes against {one_ms:.2f} "
               f"ms on one [{card}]")
     st = outs[-1]
     what = st["name"]
     for c, step in enumerate(st["steps"]):
         for r, counts in enumerate(step["launches"]):
-            if counts != block_launches(st_cfg, 1):
+            if counts != block_launches(st_cfg, 1, rank_waits(r, P11_RANKS)):
                 fail(f"{what} step {c}: rank {r} launched {counts}")
     for r, counts in enumerate(st["launches"]):
         launches[f"{what} rank {r} (3 steps)"] = counts
@@ -1730,7 +1846,7 @@ def demos_p12(card: str) -> dict:
     def want(out):
         coded = sum(1 for fb in out["feedback"] if fb["header_valid"] and fb["inner_code"])
         return {"correlator": P12_PACKETS, "extract": P12_PACKETS, "recover": P12_PACKETS,
-                "viterbi": coded, "halo": 0}
+                "viterbi": coded, "halo": 0, "halo_wait": 0}
 
     (out, t_adapt), got = counted_by("P12 adaptation demo", lambda o: want(o[0]), lambda: wall(
         lambda: adaptation_demo.main(["--packets", str(P12_PACKETS)])))
@@ -1839,6 +1955,13 @@ def main() -> None:
         check_halo(sh_streams[0][0], SH_NTIME, [ov_of(CONFIGS[0][0]), ov_of(CONFIGS[1][0])],
                    halo_also, gen),
     ]
+    # the cross-process half at the block of P11's rank 1: the last half of
+    # the sharded stream in 4 shards
+    wait_entry, signal_checked = check_halo_order(
+        sh_streams[0][0][:, SH_TOTAL // P11_RANKS[0]:].contiguous(), SH_NTIME // P11_RANKS[0],
+        ov_of(CONFIGS[0][0]))
+    kernels[-1]["also_checked"].append(signal_checked)
+    kernels.append(wait_entry)
     # kernels 1-3 again at the shapes of every other path: the windows that
     # its halo kernel builds, seen as rows of the local receiver
     rows = lambda x, n_time, cfg: halo_windows(x, n_time, ov_of(cfg)).reshape(x.shape[0] * n_time, -1)
@@ -1888,7 +2011,7 @@ def main() -> None:
                                    P9_CFG.outer_code, gen))
     check_path_shapes(kernels, "P10 flowgraph FlexRx payload 32", p10_x, max_syms(32), 8, gen)
     check_viterbi_shapes(kernels, "P10", 1, 32, gen)
-    print(f"kernels: all five agree with their plain versions at the shapes of every path "
+    print(f"kernels: all six agree with their plain versions at the shapes of every path "
           f"({time.perf_counter() - t_start:.0f} s)")
     if "--kernels-only" in sys.argv[1:]:
         print(f"device: {card}")

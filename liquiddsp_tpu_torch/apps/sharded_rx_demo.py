@@ -16,7 +16,11 @@ launcher it runs as one process.
 ``run_job`` is the one code path of a rank. ``worker`` is the function that
 ``spawn_ranks`` starts in ``world`` processes of its own (the tests and
 ``chip_smoke.py``), ``main`` the one the launcher starts; both call
-``run_job``.
+``run_job``. On a card the order of a step lives on the card
+(parallel/peer.py), so a rank that waits forever shows only as a step that
+never ends: ``run_job`` gives each step's results ``STEP_DEADLINE_S``, after
+which the rank prints the step and the flags of its shared windows and
+exits with code 3.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import os
 import socket
 import statistics
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -51,6 +56,8 @@ from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.framesync import FrameResults
 from liquiddsp_tpu_torch.runtime.distributed_stream import ShardedStreamingRx
 from liquiddsp_tpu_torch.utils.metrics import LinkMetrics
+
+STEP_DEADLINE_S = 30.0  # for the results of one step of a rank on a card
 
 
 @dataclasses.dataclass
@@ -100,51 +107,115 @@ def _all(mesh, obj) -> list:
     return out
 
 
-def _sync(mesh) -> None:
-    if mesh.device.type == "cuda":
-        torch.cuda.synchronize(mesh.device)
+def _stuck(mesh, what: str) -> None:
+    print(f"rank {mesh.rank}: {what} not done on the card after {STEP_DEADLINE_S:g} s",
+          flush=True)
+    for pw in mesh.peers.values():
+        print(f"rank {mesh.rank}: {pw.status()}", flush=True)
+    os._exit(3)
 
 
-def _counted(mesh, fn):
+def _settled(mesh, what: str, fn):
+    """Run ``fn`` and, on a card, wait until the card has done it, polling
+    an event. Past ``STEP_DEADLINE_S`` (also when ``fn`` itself waits on the
+    card, as a gloo all-reduce of its results does) the rank prints ``what``
+    and the flags of its shared windows and exits with code 3."""
+    if mesh.device.type != "cuda":
+        return fn()
+    watchdog = threading.Timer(STEP_DEADLINE_S, _stuck, args=(mesh, what))
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        out = fn()
+        done = torch.cuda.Event()
+        done.record()
+        while not done.query():
+            time.sleep(1e-4)
+    finally:
+        watchdog.cancel()
+    return out
+
+
+def _counted(mesh, what: str, fn):
     """Run ``fn`` with the kernels' launch counters at 0 just before and read
     just after; returns (its result, every rank's counts)."""
-    _sync(mesh)
+    _settled(mesh, what, lambda: None)
     _cuda.reset_launches()
-    out = fn()
-    _sync(mesh)
+    out = _settled(mesh, what, fn)
     return out, _all(mesh, dict(_cuda.LAUNCHES))
 
 
-def _median_ms(mesh, fn, reps: int) -> float:
+def _median_ms(mesh, what: str, fn, reps: int) -> float:
     """Median over ``reps`` of the host clock around ``fn``, every rank
-    starting together, the card synchronised at the end."""
+    starting together, the card's work done at the end."""
     times = []
     for _ in range(reps):
         if mesh.world > 1:
             dist.barrier(group=mesh.group)
         t0 = time.perf_counter()
-        fn()
-        _sync(mesh)
+        _settled(mesh, what, fn)
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
-def _kernel_ms(mesh, x_local: torch.Tensor, ov: int, reps: int) -> float:
-    """The halo kernel alone on a card, its push into the left rank's window
-    included: CUDA events around ``reps`` launches into the shared buffers,
-    the mean, every rank launching at the same time."""
+def _events_ms(mesh, what: str, fn, reps: int, flush: torch.Tensor | None = None) -> float:
+    """Median over ``reps`` of CUDA events around what ``fn`` enqueues, all
+    queued at once, so that the card never waits for the host; ``flush``, a
+    tensor of 512 MB, is zeroed before each to empty the 50 MB L2 cache."""
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+
+    def queued():
+        for start, end in events:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+
+    _settled(mesh, what, queued)
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def _kernel_ms(mesh, x_local: torch.Tensor, ov: int, reps: int) -> tuple[float, float]:
+    """The halo kernel of a step on a card, its push and its flag included,
+    by ``_events_ms`` with the L2 cache flushed before each launch. The
+    launches write into buffers and a flag of this rank's own, since the
+    shared ones take a launch only inside a step of parallel/peer.py's
+    order; on one card the left rank's mapped buffer is the same memory.
+    Returns (every rank launching at the same time, each rank alone: in
+    turn, while the others wait at a host barrier with nothing queued on the
+    card)."""
     n = mesh.local_time
-    pw = peer.peer_windows(mesh, (n, x_local.shape[0], x_local.shape[1] // n + ov))
+    shape = (n, x_local.shape[0], x_local.shape[1] // n + ov)
+    win, into = (torch.empty(shape, dtype=torch.complex64, device=mesh.device) for _ in range(2))
+    flags = torch.zeros(2, dtype=torch.int64, device=mesh.device)  # the flag, the block count
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=mesh.device)
+    pushes = mesh.left is not None
+
+    def launch():
+        halo_windows_into(x_local, n, ov, win, into if pushes else None, mesh.holds_last_time,
+                          flags[0] if pushes else None, 1, flags[1] if pushes else None)
+
     dist.barrier(group=mesh.group)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        win, left = pw.next()
-        halo_windows_into(x_local, n, ov, win, left, mesh.holds_last_time)
-    end.record()
-    end.synchronize()
+    together = _events_ms(mesh, "halo kernel timing", launch, reps, flush)
+    alone = None
+    for r in range(mesh.world):
+        dist.barrier(group=mesh.group)
+        if mesh.rank == r:
+            alone = _events_ms(mesh, "halo kernel timing", launch, reps, flush)
     dist.barrier(group=mesh.group)
-    return start.elapsed_time(end) / reps
+    return together, alone
+
+
+def _push_wait_ms(mesh, x_local: torch.Tensor, ov: int, reps: int) -> float:
+    """One step of ``halo_windows_dist`` on a card by ``_events_ms``: CUDA
+    events from before its wait on the left rank's ``free`` to after its
+    wait on its own ``arrived``, ``reps`` steps queued in a row, as the
+    host queues them when it runs ahead."""
+    dist.barrier(group=mesh.group)
+    return _events_ms(mesh, "push + wait timing", lambda: halo_windows_dist(x_local, mesh, ov),
+                      reps)
 
 
 def run_job(job: Job, mesh) -> dict:
@@ -160,8 +231,9 @@ def run_job(job: Job, mesh) -> dict:
     if job.chunk:
         rx = ShardedStreamingRx(cfg, mesh, batch=b, chunk_len=job.chunk, max_frames_per_shard=job.k)
         steps = []
-        for pos in range(0, t, job.chunk):
-            (res, m), counts = _counted(mesh, lambda: rx.step(x[:, pos : pos + job.chunk]))
+        for c, pos in enumerate(range(0, t, job.chunk)):
+            (res, m), counts = _counted(mesh, f"{job.name} chunk {c}",
+                                        lambda: rx.step(x[:, pos : pos + job.chunk]))
             steps.append({"res": gather_results(res, mesh), "metrics": _metrics(m),
                           "launches": counts})
         out["steps"] = steps
@@ -173,7 +245,7 @@ def run_job(job: Job, mesh) -> dict:
     x_local = local_block(x_dev, mesh)
     # the halo kernel's push across processes (on the CPU, the exchange of
     # the plain version) against the plain version of the whole stream
-    win = halo_windows_dist(x_local, mesh, ov).clone()
+    win = _settled(mesh, f"{job.name} windows", lambda: halo_windows_dist(x_local, mesh, ov).clone())
     shards = mesh.time_shards
     ref = halo_windows_ref(x_dev[mesh.ch_rows(b)], mesh.n_time, ov)[shards.start : shards.stop]
     exact = _all(mesh, bool(torch.equal(win, ref)))
@@ -181,25 +253,24 @@ def run_job(job: Job, mesh) -> dict:
         raise AssertionError(f"{job.name}: the windows of ranks {exact} differ from halo_windows_ref")
     out["windows_exact"] = exact
     out["windows_shape"] = tuple(win.shape)
-    res, out["launches"] = _counted(
-        mesh, lambda: sharded_framesync(x_dev, cfg, mesh, max_frames_per_shard=job.k))
+    step = lambda: sharded_framesync(x_dev, cfg, mesh, max_frames_per_shard=job.k)
+    res, out["launches"] = _counted(mesh, f"{job.name} step", step)
     # the samples of a channel's stream, counted once: by ch group 0
     samples = x_local.shape[1] if mesh.coords[1] == 0 else 0
     out["metrics"] = _metrics(LinkMetrics.from_results(res, samples).psum(mesh))
     out["res"] = gather_results(res, mesh)
     if job.reps:
         if dev.type == "cuda" and mesh.world > 1:
-            out["kernel_ms"] = _all(mesh, _kernel_ms(mesh, x_local, ov, 4 * job.reps))
+            together, alone = _kernel_ms(mesh, x_local, ov, 4 * job.reps)
+            out["kernel_ms"], out["kernel_alone_ms"] = _all(mesh, together), _all(mesh, alone)
+            out["push_wait_ms"] = _all(mesh, _push_wait_ms(mesh, x_local, ov, job.reps))
 
             def plain():  # the plain version on the card, the heads exchanged by gloo on the host
                 head = peer.recv_right_head(x_local[:, :ov].cpu(), mesh, ov)
                 halo_windows_dist_ref(x_local, mesh.local_time, ov, None if head is None else head.to(dev))
 
-            out["plain_ms"] = _all(mesh, _median_ms(mesh, plain, job.reps))
-        out["push_ms"] = _all(mesh, _median_ms(
-            mesh, lambda: halo_windows_dist(x_local, mesh, ov), job.reps))
-        out["step_ms"] = _all(mesh, _median_ms(
-            mesh, lambda: sharded_framesync(x_dev, cfg, mesh, max_frames_per_shard=job.k), job.reps))
+            out["plain_ms"] = _all(mesh, _median_ms(mesh, "plain halo", plain, job.reps))
+        out["step_ms"] = _all(mesh, _median_ms(mesh, f"{job.name} step", step, job.reps))
     if job.truth is not None:
         out["found"] = frames_once(out["res"], *job.truth)
     return out

@@ -35,10 +35,11 @@ NVCC_FLAGS = (
 # launches per kernel since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else
 LAUNCHES: dict[str, int] = {
-    "correlator": 0, "extract": 0, "recover": 0, "viterbi": 0, "halo": 0,
+    "correlator": 0, "extract": 0, "recover": 0, "viterbi": 0, "halo": 0, "halo_wait": 0,
 }
 
-_vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_vp, _i, _f, _ll, _ull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
+                          ctypes.c_ulonglong)
 _ARGTYPES = {
     # x, templates, split template fragments, rho2, fbin, corr, energy, B, T,
     # inv_es, stream
@@ -52,6 +53,10 @@ _ARGTYPES = {
     # x, windows, left rank's windows or NULL, B, n_time, T_local, ov, row stride,
     # zero_last, stream
     "lq_halo_windows": [_vp, _vp, _vp, _i, _i, _i, _i, _ll, _i, _vp],
+    # the same, then the flag signal set to value; count, stream
+    "lq_halo_windows_signal": [_vp, _vp, _vp, _i, _i, _i, _i, _ll, _i, _vp, _ull, _vp, _vp],
+    # flag to set or NULL, its value, flag to wait on or NULL, its value, stream
+    "lq_halo_order": [_vp, _ull, _vp, _ull, _vp],
 }
 
 _lib: ctypes.CDLL | None = None

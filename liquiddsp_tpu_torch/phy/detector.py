@@ -142,6 +142,7 @@ def detect(
     x: torch.Tensor,
     max_frames: int,
     threshold: float = DEFAULT_THRESHOLD,
+    min_spacing: int = TEMPLATE_LEN,
     fine: bool = True,
     return_count: bool = False,
     *,
@@ -151,9 +152,11 @@ def detect(
     """Find up to ``max_frames`` preamble hits in [B, T] samples.
 
     Fixed output shapes; invalid slots are masked. Local-max suppression
-    works on blocks of TEMPLATE_LEN samples: a peak must dominate its own
-    block and both neighbors, an *effective* suppression radius between one
-    and two blocks (frames are far longer than that). ``fine=False`` skips the fine CFO refinement (dphi is then
+    works on blocks of ``min_spacing`` samples: a peak must dominate its own
+    block and both neighbors, an *effective* suppression radius between
+    ``min_spacing`` and ``2 * min_spacing`` samples, so two frames must start
+    more than ``2 * min_spacing`` apart to both be reported (frames are far
+    longer than the default 128). ``fine=False`` skips the fine CFO refinement (dphi is then
     the coarse bin center): the framesync refines from its own frame windows
     instead of re-extracting preambles. ``return_count=True`` also returns the
     TOTAL threshold-passing peak count per row [B] int32 (before the top-K
@@ -169,7 +172,7 @@ def detect(
     energy = red["energy"]
     rho2 = torch.where(energy > 1e-9, red["rho2"], torch.zeros_like(energy))
 
-    blk = TEMPLATE_LEN
+    blk = min_spacing
     nb = -(-t // blk)
     rp = torch.nn.functional.pad(rho2, (0, nb * blk - t), value=-1.0)
     rb = rp.reshape(b, nb, blk)

@@ -25,6 +25,7 @@ import liquiddsp_tpu_torch.runtime.distributed_stream, liquiddsp_tpu_torch.ops.f
 import liquiddsp_tpu_torch.ops.fec.block, liquiddsp_tpu_torch.ops.modem
 import liquiddsp_tpu_torch.streams, liquiddsp_tpu_torch.dryrun
 import liquiddsp_tpu_torch.profile_step, liquiddsp_tpu_torch.config_space
+import liquiddsp_tpu_torch.profile_halo
 import liquiddsp_tpu_torch.runtime.blocks, liquiddsp_tpu_torch.runtime.bus
 import liquiddsp_tpu_torch.runtime.sim, liquiddsp_tpu_torch.ops.resample
 import liquiddsp_tpu_torch.runtime.stream, liquiddsp_tpu_torch.runtime.supervisor

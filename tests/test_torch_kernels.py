@@ -216,8 +216,25 @@ def test_wrappers_refuse_wrong_tensors_and_count_no_cpu_launch():
     assert _cuda.LAUNCHES == before  # the plain versions are not launches
     with pytest.raises(ValueError):
         _cuda.check_cuda("x", x, torch.complex64, (1, 256))  # a CPU tensor
-    assert set(_cuda.LAUNCHES) == {"correlator", "extract", "recover", "viterbi", "halo"}
+    assert set(_cuda.LAUNCHES) == {"correlator", "extract", "recover", "viterbi", "halo", "halo_wait"}
     assert set(_cuda.SOURCES) == {p.name for p in _cuda.CSRC.glob("*.cu")}
+
+
+def test_halo_order_takes_its_plain_version_on_the_cpu():
+    """On CPU flags halo_order is its plain version: the store, then a wait
+    that holds; a wait that cannot hold (nothing else writes a CPU flag)
+    raises, as does a call with no flag; no launch is counted."""
+    before = dict(_cuda.LAUNCHES)
+    flags = torch.zeros(3, dtype=torch.int64)
+    flags[1] = 4
+    thalo.halo_order(flags[0], 7, flags[1], 4)
+    thalo.halo_order(None, 0, flags[0], 7)
+    assert flags.tolist() == [7, 4, 0]
+    with pytest.raises(RuntimeError):
+        thalo.halo_order(flags[2], 1, flags[1], 5)
+    with pytest.raises(ValueError):
+        thalo.halo_order(None, 0, None, 0)
+    assert _cuda.LAUNCHES == before
 
 
 def test_c_interfaces_match_their_sources():
