@@ -85,6 +85,20 @@ Phases, each fatal on failure:
    tiled 3 times (the frame set of run; the settled bucket printed), again
    from the settled bucket, and on a burst stream (back-to-back frames in
    chunk 7: at least one group decoded again, the frame set of run).
+   StreamingRx, FlexRx, FlexTx and FrameDetectorCC replay CUDA graphs on the
+   card (core/program.py), here and in every later phase; a capture that
+   fails raises and fails the run.
+12b. (P13) the program layer at full width, each graph against the eager
+   body it captured (called directly, only to compare): for both receiver
+   configs on P5's stream, step, superstep of 5, run and run_adaptive equal
+   the eager step body bit for bit in every field (run_adaptive's chunks at
+   the slot count each was decoded at); eager and graph ms a chunk in
+   turns, the host's CUDA API calls and the device-busy share of a step and
+   a superstep (torch.profiler), captures, seconds a key and the graph
+   pool's memory. P4's block and one P6 loop generation through FlexRx: the
+   front end's graph and every payload group's graph equal their eager
+   bodies bit for bit, timed in turns; FlexTx and FrameDetectorCC twice
+   each against their bodies. Launches of the graph steps demanded exactly.
 13. (P6) the closed adaptation loop at bench/adapt_loop.py's defaults (64
    channels, payload 32, 15 dB, 50 generations, epsilon_greedy), pipelined
    (twice: the same decisions) and unpipelined: packets/s, stage split,
@@ -134,7 +148,8 @@ Phases, each fatal on failure:
    restarts=[1, 0]).
 
 Every step of every path is driven with the kernels' launch counters set to 0
-just before and read just after, and fails unless each kernel of that path
+just before and read just after (a graph replay adds the launches its
+capture recorded; the warm-up before a capture is counted apart), and fails unless each kernel of that path
 was launched exactly as often as the path demands: once a block (a
 streaming window, a loop generation, a flowgraph packet) for the correlator
 and extract, once a block on the static path for recover (never on the SFO
@@ -154,6 +169,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import random
@@ -171,6 +187,7 @@ if not torch.cuda.is_available():
 
 from liquiddsp_tpu_torch import FrameConfig
 from liquiddsp_tpu_torch import config_space as cs
+from liquiddsp_tpu_torch.core import program
 from liquiddsp_tpu_torch.kernels import _cuda
 from liquiddsp_tpu_torch.kernels.correlator import (
     correlate_reduced,
@@ -207,7 +224,8 @@ from liquiddsp_tpu_torch.adapt_loop import adapt_loop, block_samples, channel_bl
 from liquiddsp_tpu_torch.apps import adaptation_demo
 from liquiddsp_tpu_torch.apps.sharded_rx_demo import Job, spawn_ranks
 from liquiddsp_tpu_torch.engine.cognitive_engine import CognitiveEngineBlock
-from liquiddsp_tpu_torch.runtime.blocks import FlexRx, FlexTx
+from liquiddsp_tpu_torch.runtime import blocks
+from liquiddsp_tpu_torch.runtime.blocks import FlexRx, FlexTx, FrameDetectorCC
 from liquiddsp_tpu_torch.runtime.sim import ChannelModel
 from liquiddsp_tpu_torch.runtime.distributed_stream import ShardedStreamingRx
 from liquiddsp_tpu_torch.runtime.native import NativeChunkSource
@@ -1522,6 +1540,241 @@ def loop_p6_p7(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase P13: the program layer (CUDA graphs) against the eager bodies
+# ---------------------------------------------------------------------------
+
+
+def bits_of(t: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of a tensor (NaN equals NaN, -0 differs from 0)."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_bits(what: str, a, b) -> None:
+    """Two results (FrameResults, tuples, dataclasses of tensors) are equal
+    bit for bit, field by field."""
+    ta, tb = [], []
+    program.map_tensors(ta.append, a)
+    program.map_tensors(tb.append, b)
+    if len(ta) != len(tb):
+        fail(f"{what}: {len(ta)} outputs against {len(tb)}")
+    for i, (x, y) in enumerate(zip(ta, tb)):
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(bits_of(x), bits_of(y)):
+            fail(f"{what}: output {i} of the graph ({tuple(x.shape)} {x.dtype}) differs from the "
+                 f"eager body's ({tuple(y.shape)} {y.dtype})")
+
+
+def eager_steps(rx, chunks, ks) -> list:
+    """The eager body of ``rx``'s step program, chunk by chunk at slot
+    count ``ks[i]``, the window base as the step writes it."""
+    out = []
+    for chunk, k in zip(chunks, ks):
+        base = torch.full((), rx._base(), dtype=torch.int64, device=DEV)
+        res = rx.program.body(("step", k))(chunk, base)
+        rx._samples_consumed += rx.chunk_len
+        out.append(dataclasses.replace(res, epoch=rx.start_epoch))
+    return out
+
+
+def host_profile(fn) -> tuple[int, float, float, dict]:
+    """One call of ``fn`` under torch.profiler: the host's CUDA API calls
+    (the synchronise that ends the call excluded), the device-busy ms, the
+    device-busy share of the call and the calls by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = prof.key_averages()
+    api = {e.key: e.count for e in evs if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("cu") and "Synchronize" not in e.key}
+    busy = sum(e.device_time_total for e in evs
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return sum(api.values()), busy * 1e3, busy / wall, api
+
+
+def med_ms(fn, reps: int = 3) -> float:
+    return float(np.median([wall(fn)[1] for _ in range(reps)])) * 1e3
+
+
+def programs_stream(cfg, stream, card) -> dict:
+    """P13 for one config on P5's stream: step, superstep, run and
+    run_adaptive through their graphs against the eager step body, bit for
+    bit; eager and graph ms a chunk in the same call; the host's CUDA calls
+    and the device-busy share of a step and a superstep. Returns launches."""
+    name = config_name(cfg)
+    x = stream[0]
+    k = shard_slots(cfg, BLOCK)
+    per_step = block_launches(cfg, 0)
+    mk = lambda **kw: StreamingRx(cfg, BATCH, BLOCK, max_frames_per_chunk=k, device=DEV, **kw)
+    chunks = [x[:, c * BLOCK : (c + 1) * BLOCK] for c in range(P5_CHUNKS)]
+    rx_e = mk()
+    ref = eager_steps(rx_e, chunks, [k] * P5_CHUNKS)
+    launches = {}
+
+    rx = mk()
+    t0 = time.perf_counter()
+    first = rx.step(chunks[0])  # capture
+    t_capture = time.perf_counter() - t0
+    same_bits(f"P13 {name} step (first call)", first, ref[0])
+    rx.reset()
+    got, launches[f"P13 {name} step x{P5_CHUNKS}"] = counted(
+        f"P13 {name} graph steps", times_launches(per_step, P5_CHUNKS),
+        lambda: [rx.step(c) for c in chunks])
+    for c in range(P5_CHUNKS):
+        same_bits(f"P13 {name} step, chunk {c}", got[c], ref[c])
+
+    rx_s = mk()
+    sup = [rx_s.superstep(x[:, g * BLOCK : (g + P5_PER_LAUNCH) * BLOCK])
+           for g in range(0, P5_CHUNKS, P5_PER_LAUNCH)]
+    for c, res in enumerate(s for st in sup for s in split_results(st, P5_PER_LAUNCH)):
+        same_bits(f"P13 {name} superstep x{P5_PER_LAUNCH}, chunk {c}", res, ref[c])
+    rx_r = mk()
+    for c, res in enumerate(rx_r.run(x)):
+        same_bits(f"P13 {name} run, chunk {c}", res, ref[c])
+    rx_a = StreamingRx(cfg, BATCH, BLOCK, device=DEV)
+    ad = rx_a.run_adaptive(x, P5_PER_LAUNCH)
+    ks = [r.mask.shape[-1] for r in ad]
+    for c, (res, e) in enumerate(zip(ad, eager_steps(StreamingRx(cfg, BATCH, BLOCK, device=DEV),
+                                                      chunks, ks))):
+        same_bits(f"P13 {name} run_adaptive, chunk {c} at {ks[c]} slots", res, e)
+
+    # times a chunk, eager and graph in turns
+    def eager_pass():
+        rx_e.reset()
+        eager_steps(rx_e, chunks, [k] * P5_CHUNKS)
+
+    def graph_pass():
+        rx.reset()
+        for c in chunks:
+            rx.step(c)
+
+    def super_pass():
+        rx_s.reset()
+        for g in range(0, P5_CHUNKS, P5_PER_LAUNCH):
+            rx_s.superstep(x[:, g * BLOCK : (g + P5_PER_LAUNCH) * BLOCK])
+
+    t_e1, t_g1, t_s1 = med_ms(eager_pass), med_ms(graph_pass), med_ms(super_pass)
+    t_s2, t_g2, t_e2 = med_ms(super_pass), med_ms(graph_pass), med_ms(eager_pass)
+    rx.reset()
+    rx_e.reset()
+    n_e, _, busy_e, _ = host_profile(lambda: eager_steps(rx_e, chunks[:1], [k]))
+    n_g, ms_g, busy_g, api_g = host_profile(lambda: rx.step(chunks[0]))
+    rx_s.reset()
+    n_s, ms_s, busy_s, api_s = host_profile(lambda: rx_s.superstep(x[:, : P5_PER_LAUNCH * BLOCK]))
+    caps = {str(key): round(c.capture_s, 3) for key, c in
+            {**rx.program.graphs, **rx_s.program.graphs, **rx_a.program.graphs}.items()}
+    print(f"P13 programs StreamingRx {name}, {P5_CHUNKS} chunks of {BATCH} x {BLOCK} ({k} slots): "
+          f"step, superstep x{P5_PER_LAUNCH}, run and run_adaptive (slots {sorted(set(ks))}) equal "
+          f"the eager step body bit for bit in every field; ms a chunk, in turns eager / graph step "
+          f"/ graph superstep: {t_e1 / P5_CHUNKS:.2f} / {t_g1 / P5_CHUNKS:.2f} / "
+          f"{t_s1 / P5_CHUNKS:.2f}, then {t_e2 / P5_CHUNKS:.2f} / {t_g2 / P5_CHUNKS:.2f} / "
+          f"{t_s2 / P5_CHUNKS:.2f}; host CUDA calls a step eager {n_e}, graph {n_g} {api_g}, "
+          f"a superstep of {P5_PER_LAUNCH} {n_s} {api_s}; device busy a step alone eager "
+          f"{busy_e:.1%}, graph {busy_g:.1%} ({ms_g:.2f} ms), a superstep {busy_s:.1%} "
+          f"({ms_s:.2f} ms), a step's busy ms over the graph's ms a chunk in a stream "
+          f"{ms_g / (t_g1 / P5_CHUNKS):.1%} / {ms_g / (t_g2 / P5_CHUNKS):.1%}; first step with its capture "
+          f"{t_capture * 1e3:.0f} ms; capture seconds by key {caps} [{card}]")
+    return launches
+
+
+def groups_of(packed: np.ndarray, max_payload_len: int) -> dict:
+    """FlexRx's payload groups of a packed [10, B, K] plane: {(mod, inner,
+    outer, payload_len): [flat slot index]} of the header-valid slots, as
+    ``work_complete`` groups them."""
+    k = packed.shape[2]
+    groups: dict[tuple, list[int]] = {}
+    for b, s in zip(*np.nonzero((packed[0] > 0.5) & (packed[1] > 0.5))):
+        m, i, o, pl = (int(packed[r, b, s]) for r in (3, 4, 5, 2))
+        if 0 <= m < 11 and 0 <= i < 7 and 0 <= o < 8 and 0 < pl <= max_payload_len:
+            groups.setdefault((m, i, o, pl), []).append(int(b) * k + int(s))
+    return groups
+
+
+def programs_flexrx(label: str, rx, x, card) -> dict:
+    """P13 for a FlexRx block: the front end's graph and every payload
+    group's graph against their eager bodies, bit for bit; the front end
+    plus the groups through graphs and eagerly, in turns. Returns launches."""
+    key = (x.shape[0], x.shape[1], rx.n_syms, rx.max_frames, rx.threshold, DEV)
+    width = rx.max_payload_len + 1
+
+    def graphs():
+        syms, evm, packed = blocks._SYNC(key, x, device=DEV)
+        flat, evm_flat = syms.reshape((-1,) + syms.shape[2:]), evm.reshape(-1)
+        groups = groups_of(packed.cpu().numpy(), rx.max_payload_len)
+        return (syms, evm, packed), {g: blocks._decode_group(FrameConfig(*g), flat, evm_flat, idx, width)
+                                     for g, idx in groups.items()}
+
+    def eager():
+        syms, evm, packed = blocks._SYNC.body(key)(x)
+        flat, evm_flat = syms.reshape((-1,) + syms.shape[2:]), evm.reshape(-1)
+        groups = groups_of(packed.cpu().numpy(), rx.max_payload_len)
+        return (syms, evm, packed), {
+            g: blocks._PAYLOAD.body((FrameConfig(*g), flat.shape[0], len(idx), width, DEV))(
+                flat, evm_flat, torch.tensor(idx, device=DEV)) for g, idx in groups.items()}
+
+    graphs()  # the captures
+    n_static = int(fs.max_frame_spec(rx.max_payload_len).frame_syms < SFO_AUTO_SYMS)
+    want = lambda out: {"correlator": 1, "extract": 1, "recover": n_static,
+                        "viterbi": sum(1 for g in out[1] if g[1]), "halo": 0, "halo_wait": 0}
+    (front, groups), got = counted_by(f"P13 {label} graphs", want, graphs)
+    e_front, e_groups = eager()
+    same_bits(f"P13 {label} front end", front, e_front)
+    if groups.keys() != e_groups.keys():
+        fail(f"P13 {label}: the graph and eager front ends group the slots otherwise")
+    for g in groups:
+        same_bits(f"P13 {label} payload group {g}", groups[g], e_groups[g])
+    t_e1, t_g1 = med_ms(eager, 2), med_ms(graphs, 2)
+    t_g2, t_e2 = med_ms(graphs, 2), med_ms(eager, 2)
+    n_g, _, busy_g, api_g = host_profile(graphs)
+    n_valid = sum(int(v[:, -1].sum()) for v in groups.values())
+    print(f"P13 programs {label}: front end and {len(groups)} payload groups ({n_valid} CRC-valid "
+          f"frames) equal the eager bodies bit for bit; front end + groups, in turns eager / graph: "
+          f"{t_e1:.2f} / {t_g1:.2f} ms, then {t_e2:.2f} / {t_g2:.2f} ms; through the graphs "
+          f"{n_g} host CUDA calls {api_g}, device busy {busy_g:.1%}; launches {got} [{card}]")
+    return {f"P13 {label}": got}
+
+
+def programs_tx_detector(x, card) -> None:
+    """P13: FlexTx's and FrameDetectorCC's graphs against their eager bodies."""
+    cfg = FrameConfig(3, 2, 2, 64)
+    payloads = torch.randint(0, 256, (BATCH, 64), dtype=torch.uint8, device=DEV,
+                             generator=torch.Generator(DEV).manual_seed(13))
+    tx = FlexTx(cfg.modulation, cfg.inner_code, cfg.outer_code, device=DEV)
+    tx_key = (cfg.modulation, cfg.inner_code, cfg.outer_code, 64, BATCH, DEV)
+    for i in range(2):
+        same_bits(f"P13 FlexTx call {i}", tx.send_pkt(payloads).data,
+                  blocks._TX.body(tx_key)(payloads))
+    det = FrameDetectorCC(device=DEV)
+    det_key = (x.shape[0], x.shape[1], det.max_frames, det.threshold, DEV)
+    for i in range(2):
+        same_bits(f"P13 FrameDetectorCC call {i}", det.work(x)[1], blocks._DETECT.body(det_key)(x)[1])
+    print(f"P13 programs FlexTx {config_name(cfg)} x {BATCH} and FrameDetectorCC on "
+          f"{x.shape[0]} x {x.shape[1]}: graphs equal the eager bodies bit for bit, twice each, "
+          f"{det.num_frames} detections counted [{card}]")
+
+
+def programs_p13(p5_streams, p4_block, p6_x, card) -> dict:
+    """P13: the program layer at full width, each graph against its eager
+    body. Returns the launch counts of its graph steps."""
+    launches = {}
+    for (cfg, _, _), stream in zip(CONFIGS, p5_streams):
+        launches.update(programs_stream(cfg, stream, card))
+    launches.update(programs_flexrx(
+        "P4 FlexRx block", FlexRx(max_payload_len=P4_PAYLOAD, max_frames_per_block=p4_block[1].shape[1] + 2,
+                                  device=DEV), p4_block[0], card))
+    launches.update(programs_flexrx(
+        "P6 loop generation", FlexRx(max_payload_len=P6_PAYLOAD, max_frames_per_block=2, device=DEV),
+        p6_x, card))
+    programs_tx_detector(p4_block[0], card)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases P8-P10: the resampled receiver, slip_retry, the flowgraph layer
 # ---------------------------------------------------------------------------
 
@@ -2113,11 +2366,13 @@ def main() -> None:
     print(f"P4 configs, one a channel: {p4_cfgs}")
     launches.update(flexrx_run(p4_cfgs, p4_block, card))
     print(f"P4 done ({time.perf_counter() - t_start:.0f} s)")
-    del p4_block, p3_stream
+    del p3_stream
     for (cfg, snr, share), stream in zip(CONFIGS, p5_streams):
         launches.update(streaming_p5(cfg, snr, share, stream, card))
-    del p5_streams
     print(f"P5 done ({time.perf_counter() - t_start:.0f} s)")
+    launches.update(programs_p13(p5_streams, p4_block, p6_x, card))
+    del p5_streams, p4_block
+    print(f"P13 done ({time.perf_counter() - t_start:.0f} s)")
     launches.update(loop_p6_p7(card))
     print(f"P6 and P7 done ({time.perf_counter() - t_start:.0f} s)")
     resampler_precisions(p8_streams[0][0], p8_streams[0][4], card)
@@ -2144,6 +2399,10 @@ def main() -> None:
             fail(f"no path launched the {k['name']} kernel")
     for label, d in launches.items():
         print(f"launches, one step of {label}: {d}")
+    st = program.STATS
+    print(f"programs over the run (this process): {st['captures']} graphs captured in "
+          f"{st['capture_s']:.1f} s (warm-up, capture and first replay), {st['replays']} replays, "
+          f"graph pool {st['pool_bytes'] / 2**20:.0f} MiB, warm-up launches {st['warmup_launches']}")
     print(f"total {time.perf_counter() - t_start:.0f} s")
 
     print(f"device: {card}")

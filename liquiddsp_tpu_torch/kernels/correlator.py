@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from liquiddsp_tpu_torch.core.device import device_const
 from liquiddsp_tpu_torch.kernels import _cuda
 
 KERNEL_F, KERNEL_L = 5, 128  # template bank shape compiled into the kernel
@@ -52,7 +53,9 @@ def _templates_tensor(templates, device: torch.device) -> torch.Tensor:
 def _inv_template_energy(templates, inv_es: float | None) -> float:
     """1 / E_s. A caller that holds the templates on the device passes
     ``inv_es`` (known from the numpy template), so that no value has to come
-    back from the device; numpy templates are summed on the host."""
+    back from the device; numpy templates are summed on the host. The
+    receiver's programs (``core.program``) always pass it: a captured call
+    cannot read a value back."""
     if inv_es is not None:
         return float(inv_es)
     if isinstance(templates, np.ndarray):
@@ -107,7 +110,8 @@ def template_fragments(tm: torch.Tensor) -> torch.Tensor:
     (hi, then lo) in the order in which each lane loads its A registers, 16
     bytes a lane and k-step. This is the kernel's template operand."""
     hi, lo = split_bf16(template_matrix(tm))
-    rows, cols = (torch.from_numpy(a).to(tm.device) for a in a_fragment_index())
+    rows = device_const(("a_fragment_rows",), lambda: a_fragment_index()[0], tm.device)
+    cols = device_const(("a_fragment_cols",), lambda: a_fragment_index()[1], tm.device)
     return torch.stack([hi[rows[None], cols], lo[rows[None], cols]]).contiguous()
 
 

@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from liquiddsp_tpu_torch.core.device import device_const
+
 
 def bytes_to_bits(b: torch.Tensor) -> torch.Tensor:
     """uint8 [..., L] -> int8 bits [..., 8L], MSB first."""
@@ -16,9 +18,8 @@ def bytes_to_bits(b: torch.Tensor) -> torch.Tensor:
 def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     """int bits [..., 8L] -> uint8 [..., L], MSB first."""
     shape = bits.shape[:-1] + (bits.shape[-1] // 8, 8)
-    weights = torch.tensor(
-        [128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=bits.device
-    )
+    weights = device_const(
+        ("byte_weights",), lambda: np.array([128, 64, 32, 16, 8, 4, 2, 1], np.int32), bits.device)
     v = torch.sum(bits.reshape(shape).to(torch.int32) * weights, dim=-1)
     return v.to(torch.uint8)
 

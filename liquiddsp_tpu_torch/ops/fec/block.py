@@ -167,9 +167,8 @@ class LinearBlockCode:
     def decode(self, bits: torch.Tensor) -> torch.Tensor:
         """bits [..., nblocks*n] int8 -> corrected data [..., nblocks*k] int8."""
         dev = bits.device
-        weights = torch.tensor(
-            (1 << np.arange(self.r)).astype(np.int32), device=dev
-        )
+        weights = device_const(
+            ("syndrome_weights", self.r), lambda: (1 << np.arange(self.r)).astype(np.int32), dev)
         shape = bits.shape[:-1] + (bits.shape[-1] // self.n, self.n)
         c = bits.reshape(shape).to(torch.int32)
         data, par = c[..., : self.k], c[..., self.k :]

@@ -192,9 +192,9 @@ def _viterbi_run(lam: torch.Tensor) -> torch.Tensor:
     """
     b, steps, _ = lam.shape
     dev = lam.device
-    sp = np.arange(NSTATES)
-    pred0 = torch.from_numpy(sp >> 1).to(dev)
-    pred1 = torch.from_numpy((sp >> 1) | (NSTATES // 2)).to(dev)
+    pred0 = device_const(("conv_pred0",), lambda: np.arange(NSTATES) >> 1, dev)
+    pred1 = device_const(
+        ("conv_pred1",), lambda: (np.arange(NSTATES) >> 1) | (NSTATES // 2), dev)
     e = device_const(("conv_branch_signs",), branch_signs, dev)
     e0_p0, e1_p0, e0_p1, e1_p1 = e[:, 0], e[:, 1], e[:, 2], e[:, 3]
 

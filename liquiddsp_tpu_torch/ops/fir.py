@@ -61,14 +61,17 @@ def conv_same(x: torch.Tensor, h: np.ndarray | torch.Tensor) -> torch.Tensor:
 def interp_full(syms: torch.Tensor, h: np.ndarray | torch.Tensor, k: int) -> torch.Tensor:
     """Zero-stuff complex symbols [..., n] by k, 'full'-convolve with real
     taps [L] -> [..., k*n + L - 1] complex64."""
-    taps = torch.as_tensor(h, dtype=torch.float32).tolist()
+    # the taps stay on the device (a tensor of them is read there, never
+    # back on the host), so that the call can run inside a CUDA graph
+    taps = (h if isinstance(h, torch.Tensor) else torch.from_numpy(np.asarray(h))).to(
+        device=syms.device, dtype=torch.float32)
     n = syms.shape[-1]
-    n_out = k * n + len(taps) - 1
+    n_out = k * n + taps.shape[0] - 1
     up = torch.zeros(syms.shape[:-1] + (k * n,), dtype=torch.complex64, device=syms.device)
     up[..., ::k] = syms.to(torch.complex64)
     out = torch.zeros(syms.shape[:-1] + (n_out,), dtype=torch.complex64, device=syms.device)
-    for j, tap in enumerate(taps):
-        out[..., j : j + k * n] += up * tap
+    for j in range(taps.shape[0]):
+        out[..., j : j + k * n] += up * taps[j]
     return out
 
 

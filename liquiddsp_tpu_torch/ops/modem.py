@@ -145,17 +145,16 @@ def bits_to_indices(bits: torch.Tensor, bps: int) -> torch.Tensor:
     """Pack bits [..., n*bps] (int, MSB-first per symbol) -> indices [..., n]."""
     shape = bits.shape[:-1] + (bits.shape[-1] // bps, bps)
     b = bits.reshape(shape).to(torch.int32)
-    weights = torch.tensor(
-        [1 << (bps - 1 - i) for i in range(bps)], dtype=torch.int32, device=bits.device
-    )
+    weights = device_const(
+        ("index_weights", bps), lambda: (1 << np.arange(bps - 1, -1, -1)).astype(np.int32),
+        bits.device)
     return torch.sum(b * weights, dim=-1).to(torch.int32)
 
 
 def indices_to_bits(idx: torch.Tensor, bps: int) -> torch.Tensor:
     """Unpack indices [..., n] -> bits [..., n*bps] (int8, MSB-first)."""
-    shifts = torch.tensor(
-        [bps - 1 - i for i in range(bps)], dtype=torch.int32, device=idx.device
-    )
+    shifts = device_const(
+        ("index_shifts", bps), lambda: np.arange(bps - 1, -1, -1, dtype=np.int32), idx.device)
     bits = (idx.to(torch.int32)[..., None] >> shifts) & 1
     return bits.reshape(idx.shape[:-1] + (idx.shape[-1] * bps,)).to(torch.int8)
 
@@ -234,11 +233,15 @@ def demod_soft_bits(
     table = constellation_t(mod, symbols.device)
     bps = MOD_BPS[mod]
     d2 = torch.abs(_decision_symbols(symbols, mod)[..., None] - table) ** 2  # [..., n, M]
-    m_idx = np.arange(table.shape[0])
-    inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
+    # zero_bit[b, m]: bit b (MSB first) of constellation index m is 0
+    zero_bit = device_const(
+        ("zero_bit", bps),
+        lambda: ((np.arange(1 << bps)[None, :] >> np.arange(bps - 1, -1, -1)[:, None]) & 1) == 0,
+        d2.device)
+    inf = float("inf")
     llrs = []
     for b in range(bps):
-        bit = torch.from_numpy(((m_idx >> (bps - 1 - b)) & 1) == 0).to(d2.device)
+        bit = zero_bit[b]
         d0 = torch.min(torch.where(bit, d2, inf), dim=-1).values
         d1 = torch.min(torch.where(~bit, d2, inf), dim=-1).values
         llrs.append((d1 - d0) / noise_var)

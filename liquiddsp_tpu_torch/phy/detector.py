@@ -219,8 +219,8 @@ def detect(
     tau = torch.clamp(tau, -0.5, 0.5)
 
     # CFO: coarse (best bin) + optional fine (dual-half phase slope)
-    coarse = torch.tensor(
-        [cfo_of_bin(bb) for bb in CFO_BINS], dtype=torch.float32, device=dev
+    coarse = device_const(
+        ("cfo_bins",), lambda: np.array([cfo_of_bin(bb) for bb in CFO_BINS], np.float32), dev
     )[fbin]
     start = start.to(torch.int32)
     if fine:

@@ -11,10 +11,11 @@ TX chain (see phy/frame_spec.py for the format):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from liquiddsp_tpu_torch.core.config import FrameConfig
-from liquiddsp_tpu_torch.core.device import resolve_device
+from liquiddsp_tpu_torch.core.device import device_const, resolve_device
 from liquiddsp_tpu_torch.ops import bits as bitops
 from liquiddsp_tpu_torch.ops import crc, fir, modem
 from liquiddsp_tpu_torch.ops.fec import registry
@@ -44,16 +45,11 @@ def build_header_bytes(
     device = _header_device(user_header, device)
     if user_header is None:
         user_header = torch.zeros((batch, fs.HEADER_USER_BYTES), dtype=torch.uint8, device=device)
-    proto = torch.tensor(
-        [
-            (cfg.payload_len >> 8) & 0xFF,
-            cfg.payload_len & 0xFF,
-            cfg.modulation,
-            cfg.inner_code,
-            cfg.outer_code,
-        ],
-        dtype=torch.uint8,
-        device=device,
+    proto = device_const(
+        ("header_proto", cfg.payload_len, cfg.modulation, cfg.inner_code, cfg.outer_code),
+        lambda: np.array([(cfg.payload_len >> 8) & 0xFF, cfg.payload_len & 0xFF,
+                          cfg.modulation, cfg.inner_code, cfg.outer_code], np.uint8),
+        device,
     ).repeat(batch, 1)
     return torch.cat([user_header.to(device), proto], dim=-1)
 

@@ -270,7 +270,7 @@ def _sfo_fit(windows: torch.Tensor, tau: torch.Tensor, seg: int, bank65: torch.T
     """
     P = NUM_TIMING_PHASES
     nseg = windows.shape[-3]
-    deltas = torch.tensor(_SFO_DELTAS, dtype=torch.float32, device=tau.device)
+    deltas = device_const(("sfo_deltas",), lambda: np.array(_SFO_DELTAS, np.float32), tau.device)
     q = torch.clamp(torch.round((-tau[..., None] + deltas) * P).to(torch.int64), -P, P) + P
     taps = bank65[q].transpose(-1, -2)  # [B, K, 32, 5]
     y = torch.matmul(windows, taps[..., None, :, :])  # [2, B, K, nseg, seg, 5]
@@ -457,7 +457,7 @@ def _eq_train(syms: torch.Tensor, ref: torch.Tensor | None) -> torch.Tensor:
         y = syms[..., n0 : n0 + rows]
         h = y @ A_est.T  # [..., L]
         resid = y - h @ D_c.T
-        p_train = torch.tensor(p_train_f, dtype=torch.float32, device=dev)
+        p_train = device_const(("eq_pre_p_train",), lambda: np.float32(p_train_f), dev)
     else:
         n_ref = ref.shape[-1]
         rows = n_ref - L + 1  # targets m = n0 .. n_ref-1-c: full regressor span
@@ -489,8 +489,7 @@ def _eq_train(syms: torch.Tensor, ref: torch.Tensor | None) -> torch.Tensor:
     sigma2 = torch.mean(torch.abs(resid) ** 2, dim=-1) * (rows / max(rows - L, 1))
 
     # James-Stein gate on the ISI taps (lag-0 always kept)
-    delta = torch.zeros((L,), dtype=h.dtype, device=dev)
-    delta[c] = 1.0
+    delta = device_const(("eq_delta", L), lambda: np.eye(L, dtype=np.complex64)[c], dev)
     hc = h[..., c]
     e = h - hc[..., None] * delta
     isi = torch.sum(torch.abs(e) ** 2, dim=-1)
@@ -518,8 +517,8 @@ def _eq_train(syms: torch.Tensor, ref: torch.Tensor | None) -> torch.Tensor:
         ],
         dim=-1,
     )  # [..., 2L-1], R[k + L-1] = sum_m h[m] conj(h[m-k])
-    ii = np.arange(L)
-    toep = torch.from_numpy((ii[:, None] - ii[None, :]) + L - 1).to(dev)
+    toep = device_const(
+        ("eq_toeplitz", L), lambda: np.subtract.outer(np.arange(L), np.arange(L)) + L - 1, dev)
     M = (
         p_train[..., None, None] * R[..., toep]
         + sigma2[..., None, None] * torch.eye(L, dtype=h.dtype, device=dev)
@@ -829,6 +828,27 @@ def sync_common(
 DD_PASSES = 2  # tracker passes: V&V (when it runs) counts as the first
 
 
+def _f32(v: torch.Tensor | float, device: torch.device) -> torch.Tensor:
+    """A float32 tensor on ``device``: ``v`` itself, or a Python number
+    written by a fill on the device (no copy from the host, so that the call
+    can run inside a CUDA graph)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
+def _segment_interp(nseg: int, seg: int, device: torch.device):
+    """(j_lo [nseg*seg] int64, fr [nseg*seg] float32): the piecewise-linear
+    interpolation between segment centers, as tables on ``device``."""
+    def build():
+        t_pos = (np.arange(nseg * seg, dtype=np.float32) - (seg - 1) / 2.0) / seg
+        j_lo = np.clip(np.floor(t_pos).astype(np.int64), 0, nseg - 2)
+        return j_lo, np.clip(t_pos - j_lo, 0.0, 1.0).astype(np.float32)
+
+    return (device_const(("dd_interp_j", nseg, seg), lambda: build()[0], device),
+            device_const(("dd_interp_fr", nseg, seg), lambda: build()[1], device))
+
+
 def _median_last(a: torch.Tensor) -> torch.Tensor:
     """Median over the last axis, keeping it, with the mean of the two middle
     values for an even count (``torch.median`` returns the lower one)."""
@@ -919,10 +939,8 @@ def _dd_phase_track(
         # neighboring V&V statistics.
         conf = torch.abs(u)
         thr = 0.35 * _median_last(conf)
-        anchor = torch.as_tensor(anchor, dtype=torch.float32, device=dev)
-        slope = (
-            torch.as_tensor(anchor_slope, dtype=torch.float32, device=dev) * seg
-        ).expand(lead)  # rad per segment
+        anchor = _f32(anchor, dev)
+        slope = (_f32(anchor_slope, dev) * seg).expand(lead)  # rad per segment
         half_p = period / 2.0
 
         def th_at(i, slope):
@@ -954,10 +972,7 @@ def _dd_phase_track(
             good = good_i
         th = torch.stack(th, dim=-1)  # [..., nseg] unwrapped
         # piecewise-linear interpolation between segment centers
-        t_pos = (np.arange(nseg * seg, dtype=np.float32) - (seg - 1) / 2.0) / seg
-        j_lo = np.clip(np.floor(t_pos).astype(np.int64), 0, nseg - 2)
-        fr = torch.from_numpy(np.clip(t_pos - j_lo, 0.0, 1.0).astype(np.float32)).to(dev)
-        j_lo = torch.from_numpy(j_lo).to(dev)
+        j_lo, fr = _segment_interp(nseg, seg, dev)
         phi = th[..., j_lo] * (1.0 - fr) + th[..., j_lo + 1] * fr
         flat = p.reshape(lead + (nseg * seg,)) * expj(-phi)
         n_dd = DD_PASSES - 1
@@ -982,9 +997,9 @@ def _dd_gain_passes(flat, pay, mod, nseg, seg, n, n_dd, return_weight=False):
     dev = flat.device
     lead = pay.shape[:-1]
     table = modem.constellation_t(mod, dev)
-    valid = torch.from_numpy(
-        (np.arange(nseg * seg) < n).reshape(nseg, seg).astype(np.float32)
-    ).to(dev)
+    valid = device_const(
+        ("dd_valid", nseg, seg, n),
+        lambda: (np.arange(nseg * seg) < n).reshape(nseg, seg).astype(np.float32), dev)
     wmag = None
     for _ in range(n_dd):
         p = flat.reshape(lead + (nseg, seg))
@@ -1059,13 +1074,13 @@ def decode_payload_symbols(
         # phase + slope): the residual the tracker sees then starts at ~zero
         # phase and ~zero slope
         t_rel = torch.arange(pay.shape[-1], dtype=torch.float32, device=dev)
-        slope = torch.as_tensor(anchor_slope, dtype=torch.float32, device=dev)
+        slope = _f32(anchor_slope, dev)
         line = anchor[..., None] + slope[..., None] * t_rel
         pay = pay * expj(-line)
         pay, gmag = _dd_phase_track(pay, cfg.modulation, seg=32, return_weight=True)
     if noise_var is None:
         noise_var = 0.1
-    nv = torch.clamp(torch.as_tensor(noise_var, dtype=torch.float32, device=dev), min=1e-4)
+    nv = torch.clamp(_f32(noise_var, dev), min=1e-4)
     if nv.dim():
         nv = nv[..., None]  # broadcast over the per-symbol axis
     if gmag is not None:

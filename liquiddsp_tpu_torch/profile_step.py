@@ -17,8 +17,11 @@ and a framesync_fixed step on 64 x 65,536 samples of 2650-symbol QAM16
 frames stretched by +-50 ppm (the sample-clock-drift path; the launches of
 its symbol-recovery stage are those of an SFO block). With ``--stream`` it
 profiles the continuous streaming receiver (``StreamingRx``: one step and one
-superstep of 5 chunks of 64 x 65,536, both configs) and ten generations of
-the closed adaptation loop at its defaults (64 channels, payload 32, 15 dB).
+superstep of 5 chunks of 64 x 65,536, both configs, as replayed CUDA graphs,
+and the step's eager body beside them) and ten generations of the closed
+adaptation loop at its defaults (64 channels, payload 32, 15 dB). Each
+profile counts the graph replays and the host's CUDA API calls beside the
+device's kernel launches (a replay is one graph launch on the host).
 With ``--resampled`` it profiles the resampled receiver step of the reference
 bench (BASELINE config 3, both configs): 64 channels x 65,536 in four
 sample-clock groups, ``arbitrary_groups`` with bf16 planes at rank 4 as a
@@ -43,6 +46,7 @@ import torch
 from liquiddsp_tpu_torch import FrameConfig
 from liquiddsp_tpu_torch import config_space as cs
 from liquiddsp_tpu_torch.adapt_loop import adapt_loop
+from liquiddsp_tpu_torch.core import program
 from liquiddsp_tpu_torch.core.device import resolve_device
 from liquiddsp_tpu_torch.kernels.halo import halo_windows
 from liquiddsp_tpu_torch.ops import agc, fir, nco, resample
@@ -52,6 +56,7 @@ from liquiddsp_tpu_torch.parallel.mesh import make_mesh
 from liquiddsp_tpu_torch.phy import detector, framesync
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.tables import phy_tables
+from liquiddsp_tpu_torch.runtime import blocks
 from liquiddsp_tpu_torch.runtime.blocks import FlexRx
 from liquiddsp_tpu_torch.runtime.stream import StreamingRx
 from liquiddsp_tpu_torch.streams import (
@@ -86,9 +91,13 @@ def _device_events(prof) -> list:
 
 def _device_profile(fn) -> dict:
     """One run of ``fn`` under torch.profiler: host-clock ms, device-busy ms,
-    device kernel launches and the kernels that take the most device time."""
+    device kernel launches, the kernels that take the most device time, the
+    host's CUDA API calls (the closing synchronise left out) and the graph
+    replays of ``core.program`` in it. The profiler shows a replay as one
+    graph launch on the host; the kernels it runs are the device events."""
     from torch.profiler import ProfilerActivity, profile
 
+    replays = program.STATS["replays"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -98,10 +107,16 @@ def _device_profile(fn) -> dict:
     evs = _device_events(prof)
     dev_ms = sum(e.device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.device_time_total)[:8]
+    api = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("cu")
+           and "Synchronize" not in e.key}
     return {
         "profiled_step_ms": t_prof, "device_busy_ms": dev_ms,
         "device_busy_share_of_profiled_step": dev_ms / t_prof,
         "device_kernel_launches": int(sum(e.count for e in evs)),
+        "graph_replays": program.STATS["replays"] - replays,
+        "host_cuda_calls": int(sum(api.values())),
+        "host_cuda_calls_by_name": dict(sorted(api.items(), key=lambda kv: -kv[1])[:8]),
         "top_device_kernels": [
             {"name": e.key[:80], "ms": e.device_time_total / 1e3, "count": e.count} for e in top],
     }
@@ -189,13 +204,16 @@ def profile_flexrx(dev, payload_len: int = 64, seed: int = 7) -> dict:
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     expected = [(m, i, o, payload_len) for m, i, o in cfgs]
     _, t_spec = _timed(lambda: rx.work_complete(rx.work_submit(x, expected_configs=expected)))
+    key = (x.shape[0], x.shape[1], rx.n_syms, rx.max_frames, rx.threshold, dev)
+    _, t_front_graph = _timed(lambda: blocks._SYNC(key, x, device=dev))
     return {
         "path": "FlexRx", "shape": list(x.shape), "max_payload_len": payload_len,
         "symbol_buffer": rx.n_syms, "slots_per_row": rx.max_frames,
         "config_groups": len(set(cfgs)),
         "frames_sent": int(ok.size), "frames_decoded_bit_exact": int(ok.sum()),
         "false_crc_passes": int(false.sum()),
-        "stage_ms": {"front end (sync_common)": t_front},
+        "stage_ms": {"front end (sync_common), eager": t_front,
+                     "front end, its graph replayed": t_front_graph},
         "step_ms": t_step, "speculative_step_ms": t_spec,
         "samples_per_s": BATCH * BLOCK / (t_step * 1e-3),
         **_device_profile(lambda: rx.work(x)),
@@ -206,7 +224,8 @@ def profile_flexrx(dev, payload_len: int = 64, seed: int = 7) -> dict:
 def profile_stream(cfg: FrameConfig, snr_db: float, dev, gen, per_launch: int = 5) -> dict:
     """StreamingRx at the reference bench's streaming shape: one step (the
     median over 10 chunks) and one superstep of ``per_launch`` chunks, each
-    also under the profiler."""
+    also under the profiler, replayed as their graphs; and the step's eager
+    body on the same chunks, for comparison."""
     n = 2 * per_launch
     x, _, _, _ = long_stream(cfg, snr_db, BATCH, n * BLOCK, gen, dev)
     k = shard_slots(cfg, BLOCK)  # the bench's (chunk_len + f - 1) // period + 2
@@ -221,6 +240,18 @@ def profile_stream(cfg: FrameConfig, snr_db: float, dev, gen, per_launch: int = 
     _, t_super = _timed(lambda: rx.superstep(x[:, : per_launch * BLOCK]), reps=3)
     rx.reset()
     super_prof = _device_profile(lambda: rx.superstep(x[:, : per_launch * BLOCK]))
+
+    rx_e = StreamingRx(cfg, BATCH, BLOCK, max_frames_per_chunk=k, device=dev)
+
+    def eager(c: int):
+        base = torch.full((), rx_e._base(), dtype=torch.int64, device=dev)
+        rx_e.program.body(("step", k))(x[:, c * BLOCK : (c + 1) * BLOCK], base)
+        rx_e._samples_consumed += BLOCK
+
+    chunks = iter(range(n))
+    _, t_eager = _timed(lambda: eager(next(chunks)), reps=n)
+    rx_e.reset()
+    eager_prof = _device_profile(lambda: eager(0))
     return {
         "config": [cfg.modulation, cfg.inner_code, cfg.outer_code, cfg.payload_len],
         "window": [BATCH, BLOCK + rx.overlap], "max_frames": k, "snr_db": snr_db,
@@ -228,6 +259,9 @@ def profile_stream(cfg: FrameConfig, snr_db: float, dev, gen, per_launch: int = 
         "step_profile": step_prof,
         f"superstep_{per_launch}_ms": t_super,
         f"superstep_{per_launch}_profile": super_prof,
+        "eager_step_ms": t_eager, "eager_step_profile": eager_prof,
+        "capture_s": {str(key): c.capture_s for key, c in rx.program.graphs.items()},
+        "graph_pool_mb": program.STATS["pool_bytes"] / 2**20,
     }
 
 

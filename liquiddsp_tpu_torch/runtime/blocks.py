@@ -18,7 +18,13 @@ frame_detector_cc.h:36-50) wired through message ports:
 - ``FrameDetectorCC``: passthrough + detection count
   (lib/frame_detector_cc_impl.cc:66-97).
 
-Every block runs on ``device`` (``None``: the GPU).
+Every block runs on ``device`` (``None``: the GPU). The device work of a
+call is a program (``core.program``), cached as the JAX package caches its
+jits and replayed as a CUDA graph on a card: the transmitter per (config,
+batch), the receiver's front end per (B, T, n_syms, max_frames, threshold),
+a payload group per (config, n_flat, n_take) and the detector per shape.
+What the host does between programs stays on the host: the fetch of the
+packed plane, the grouping by header config and the speculative decode.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from liquiddsp_tpu_torch.core.config import (
     FrameConfig,
 )
 from liquiddsp_tpu_torch.core.device import resolve_device
+from liquiddsp_tpu_torch.core.program import Program
 from liquiddsp_tpu_torch.phy import detector, framegen, framesync
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.tables import phy_tables
@@ -43,21 +50,81 @@ from liquiddsp_tpu_torch.runtime.bus import PDU, MessageBus
 
 def _as_batch(x, device: torch.device) -> torch.Tensor:
     """[B, T] (or [T]) samples of any array type -> complex64 [B, T] on ``device``."""
-    x = torch.as_tensor(x).to(device=device, dtype=torch.complex64)
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x)
+    x = x.to(device=device, dtype=torch.complex64)
     return (x[None] if x.dim() == 1 else x).contiguous()
+
+
+def _tx_body(key: tuple):
+    """FlexTx's program: [batch, payload_len] payloads -> frames."""
+    m, i, o, payload_len, _, dev = key
+    cfg = FrameConfig(m, i, o, payload_len)
+    return lambda payload: framegen.framegen(payload, cfg, device=dev)
+
+
+def _sync_body(key: tuple):
+    """FlexRx's front end: ``sync_common`` plus every per-slot scalar the
+    host needs as ONE packed [10, B, K] float32 plane."""
+    _, _, n_syms, max_frames, threshold, dev = key
+    tables = phy_tables(None, dev)
+
+    def run(x):
+        det, syms, (hdr_valid, _, plen, mod, inner, outer), evm_lin = framesync.sync_common(
+            x, n_syms, max_frames, threshold, tables=tables, device=dev)
+        packed = torch.stack([
+            det.mask.to(torch.float32), hdr_valid.to(torch.float32), plen.to(torch.float32),
+            mod.to(torch.float32), inner.to(torch.float32), outer.to(torch.float32),
+            evm_lin, det.gamma, det.dphi, det.start.to(torch.float32),
+        ])
+        return syms, evm_lin, packed
+
+    return run
+
+
+def _payload_body(key: tuple):
+    """A payload group: gather the slots ``idx`` out of the flattened [B*K,
+    n_syms] symbol buffer and decode them as ``cfg``: uint8 [n_take, width],
+    the payload bytes first and the CRC pass flag in the last column."""
+    cfg, _, n_take, width, dev = key
+    tables = phy_tables(cfg, dev)
+
+    def run(syms_flat, evm_flat, idx):
+        payloads, crc_ok = framesync.decode_payload_symbols(
+            syms_flat[idx], cfg, noise_var=evm_flat[idx], tables=tables)
+        gap = torch.zeros((n_take, width - 1 - cfg.payload_len), dtype=torch.uint8, device=dev)
+        return torch.cat([payloads, gap, crc_ok[:, None].to(torch.uint8)], dim=-1)
+
+    return run
+
+
+def _detector_body(key: tuple):
+    """FrameDetectorCC's program: [B, T] -> (detections a row, detections)."""
+    _, _, max_frames, threshold, dev = key
+
+    def run(x):
+        _, count, det = detector.frame_detector_cc(x, max_frames, threshold, device=dev)
+        return count, det
+
+    return run
+
+
+# the programs, keyed as the JAX package keys its cached jits (plus the device)
+_TX = Program("FlexTx", _tx_body)
+_SYNC = Program("FlexRx front end", _sync_body)
+_PAYLOAD = Program("FlexRx payload group", _payload_body)
+_DETECT = Program("FrameDetectorCC", _detector_body)
 
 
 def _decode_group(cfg: FrameConfig, syms_flat: torch.Tensor, evm_flat: torch.Tensor,
                   flat_idx: list[int], width: int) -> torch.Tensor:
-    """Gather the slots ``flat_idx`` out of the flattened [B*K, n_syms]
-    symbol buffer and decode them as ``cfg``: uint8 [G, width], the payload
+    """Decode the slots ``flat_idx`` of the flattened [B*K, n_syms] symbol
+    buffer as ``cfg`` through their program: uint8 [G, width], the payload
     bytes first and the CRC pass flag in the last column."""
     dev = syms_flat.device
-    idx = torch.as_tensor(flat_idx, dtype=torch.int64).to(dev, non_blocking=True)
-    payloads, crc_ok = framesync.decode_payload_symbols(
-        syms_flat[idx], cfg, noise_var=evm_flat[idx], tables=phy_tables(cfg, dev))
-    gap = torch.zeros((len(flat_idx), width - 1 - cfg.payload_len), dtype=torch.uint8, device=dev)
-    return torch.cat([payloads, gap, crc_ok[:, None].to(torch.uint8)], dim=-1)
+    idx = torch.tensor(flat_idx, dtype=torch.int64)  # on the host: a graph copies it in
+    key = (cfg, syms_flat.shape[0], len(flat_idx), width, dev)
+    return _PAYLOAD(key, syms_flat, evm_flat, idx, device=dev)
 
 
 class FlexTx:
@@ -116,8 +183,9 @@ class FlexTx:
         payload = torch.as_tensor(payload, dtype=torch.uint8).to(self.device)
         if payload.dim() == 1:
             payload = payload[None]
-        cfg = FrameConfig(self.modulation, self.inner_code, self.outer_code, payload.shape[-1])
-        frames = framegen.framegen(payload, cfg, device=self.device)
+        key = (self.modulation, self.inner_code, self.outer_code, payload.shape[-1],
+               payload.shape[0], self.device)
+        frames = _TX(key, payload, device=self.device)
         out = PDU(
             meta={
                 "modulation": self.modulation,
@@ -176,14 +244,8 @@ class FlexRx:
         grouped decode."""
         dev = self.device
         x = _as_batch(x, dev)
-        det, syms, (hdr_valid, user, plen, mod, inner, outer), evm_lin = framesync.sync_common(
-            x, self.n_syms, self.max_frames, self.threshold, tables=self.tables, device=dev)
-        # every per-slot scalar the host needs, as ONE [10, B, K] plane
-        packed = torch.stack([
-            det.mask.to(torch.float32), hdr_valid.to(torch.float32), plen.to(torch.float32),
-            mod.to(torch.float32), inner.to(torch.float32), outer.to(torch.float32),
-            evm_lin, det.gamma, det.dphi, det.start.to(torch.float32),
-        ])
+        key = (x.shape[0], x.shape[1], self.n_syms, self.max_frames, self.threshold, dev)
+        syms, evm_lin, packed = _SYNC(key, x, device=dev)
         ready = None
         if packed.is_cuda:  # into pinned host memory, behind an event
             packed = packed.to("cpu", non_blocking=True)
@@ -315,7 +377,7 @@ class FrameDetectorCC:
 
     def work(self, x):
         x = _as_batch(x, self.device)
-        x, count, det = detector.frame_detector_cc(x, self.max_frames, self.threshold,
-                                                   device=self.device)
+        key = (x.shape[0], x.shape[1], self.max_frames, self.threshold, self.device)
+        count, det = _DETECT(key, x, device=self.device)
         self.num_frames += int(count.sum())
         return x, det

@@ -14,9 +14,16 @@ exactly once there.
 
 The window is one ``[B, overlap + chunk_len]`` buffer on the device that
 the object owns: a step writes the chunk into it, runs ``framesync_fixed``
-and moves the tail to the front (an update in place). PyTorch has no scan:
-``superstep`` runs the step once per chunk and stacks the results, so it
-equals N steps by construction.
+and moves the tail to the front (an update in place). That buffer is the
+carry of the instance's programs (``core.program``), keyed as the JAX
+package keys its jits: on a card ``step`` replays one CUDA graph per slot
+count ``k``, and ``superstep`` one graph per ``(k, N)`` that sweeps all N
+windows (the JAX ``lax.scan``, unrolled at capture), so N chunks are one
+replay; ``run_adaptive`` takes one such graph per bucket, with the group's
+demand as one device scalar. The window base rides into a graph as a device
+scalar written before each replay; the stream position, the epoch split and
+the bound of a launch stay on the host. On the CPU the same bodies run
+directly.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from liquiddsp_tpu_torch.core.config import FrameConfig
 from liquiddsp_tpu_torch.core.device import resolve_device
+from liquiddsp_tpu_torch.core.program import Program
 from liquiddsp_tpu_torch.phy import frame_spec as fs
 from liquiddsp_tpu_torch.phy.framesync import FrameResults, framesync_fixed
 from liquiddsp_tpu_torch.phy.tables import phy_tables
@@ -106,6 +114,8 @@ class StreamingRx:
         self._adaptive_k = None  # settled bucket of run_adaptive
         self.adaptive_buckets: set[int] = set()
         self.adaptive_redos = 0
+        # ("step", k) or ("superstep", k, N, with_count) -> a graph on a card
+        self.program = Program("StreamingRx", self._body, state=(self._buf,))
 
     @property
     def _carry(self) -> torch.Tensor:
@@ -137,9 +147,10 @@ class StreamingRx:
         self.start_epoch = (max(base_abs, 0) >> _EPOCH_BITS) << _EPOCH_BITS
         return base_abs - self.start_epoch
 
-    def _window_step(self, chunk: torch.Tensor, k: int, base: int, with_count: bool = False):
-        """One window: write ``chunk``, decode with ``k`` slots, keep the
-        contained frames, offset ``start`` by ``base``, move the carry."""
+    def _window(self, chunk: torch.Tensor, k: int, base: torch.Tensor, with_count: bool):
+        """One window, the body of every program: write ``chunk``, decode
+        with ``k`` slots, keep the contained frames, offset ``start`` by the
+        device scalar ``base``, move the carry."""
         ov = self.overlap
         self._buf[:, ov:].copy_(chunk)
         out = framesync_fixed(
@@ -153,15 +164,38 @@ class StreamingRx:
             mask=res.mask & contained,
             header_valid=res.header_valid & contained,
             payload_valid=res.payload_valid & contained,
-            # start as a stream sample index within the epoch
+            # start as a stream sample index within the epoch (int32: a
+            # 0-dim int64 does not promote it)
             start=res.start + base,
         )
         self._buf[:, :ov] = self._buf[:, self.chunk_len :].clone()
-        self._samples_consumed += self.chunk_len
         return res, count
 
+    def _body(self, key: tuple):
+        """The program of ``key``: ("step", k) takes a [B, L] chunk and the
+        window base; ("superstep", k, N, with_count) [B, N, L] chunks and the
+        base of the first, and returns the stacked [N, B, K, ...] results
+        (and the group's demand: the largest threshold-peak count of its
+        windows, one device scalar)."""
+        if key[0] == "step":
+            k = key[1]
+            return lambda chunk, base: self._window(chunk, k, base, False)[0]
+        _, k, n, with_count = key
+
+        def sweep(chunks, base):
+            results, counts = [], []
+            for i in range(n):
+                res, count = self._window(chunks[:, i], k, base + i * self.chunk_len, with_count)
+                results.append(res)
+                counts.append(count)
+            stacked = _stack(results, 0)
+            return (stacked, torch.stack(counts).max()) if with_count else stacked
+
+        return sweep
+
     def _as_chunk(self, chunk) -> torch.Tensor:
-        chunk = torch.as_tensor(chunk)
+        if not isinstance(chunk, torch.Tensor):
+            chunk = torch.as_tensor(chunk)
         if tuple(chunk.shape) != (self.batch, self.chunk_len):
             raise ValueError(
                 f"chunk: expected shape {(self.batch, self.chunk_len)}, got {tuple(chunk.shape)}")
@@ -172,7 +206,8 @@ class StreamingRx:
         FrameResults whose ``start`` fields are stream sample indices
         relative to ``res.epoch``."""
         chunk = self._as_chunk(chunk)
-        res, _ = self._window_step(chunk, self.max_frames, self._base())
+        res = self.program(("step", self.max_frames), chunk, self._base(), device=self.device)
+        self._samples_consumed += self.chunk_len
         return dataclasses.replace(res, epoch=self.start_epoch)
 
     def push(self, samples) -> list[FrameResults]:
@@ -209,7 +244,8 @@ class StreamingRx:
 
     def _chunks_of(self, chunks) -> torch.Tensor:
         """[B, N, L] or [B, N*L] (numpy or torch) -> [B, N, L] tensor."""
-        chunks = torch.as_tensor(chunks)
+        if not isinstance(chunks, torch.Tensor):
+            chunks = torch.as_tensor(chunks)
         if chunks.dim() == 2:
             b, t = chunks.shape
             if t % self.chunk_len:
@@ -220,20 +256,18 @@ class StreamingRx:
         return chunks
 
     def _launch(self, chunks: torch.Tensor, k: int, with_count: bool = False):
-        """N chunks under ONE epoch base: (stacked FrameResults, per-chunk
-        peak counts or None)."""
+        """N chunks under ONE epoch base, one program call: (stacked
+        FrameResults, the group's demand as a device scalar, or None)."""
         n = chunks.shape[1]
         # the base can sit up to 2^30 into the current epoch; bound the
         # largest in-launch index below int32's maximum
         assert n * self.chunk_len + self.frame_samples < (1 << _EPOCH_BITS), (
             "launch exceeds one start epoch")
         base0 = self._base()
-        results, counts = [], []
-        for i in range(n):
-            res, count = self._window_step(chunks[:, i], k, base0 + i * self.chunk_len, with_count)
-            results.append(res)
-            counts.append(count)
-        return _stack(results, self.start_epoch), counts if with_count else None
+        out = self.program(("superstep", k, n, with_count), chunks, base0, device=self.device)
+        self._samples_consumed += n * self.chunk_len
+        res, demand = out if with_count else (out, None)
+        return dataclasses.replace(res, epoch=self.start_epoch), demand
 
     def superstep(self, chunks) -> FrameResults:
         """Process N chunks in one call: ``[B, N, chunk_len]`` or
@@ -310,9 +344,9 @@ class StreamingRx:
         groups = []  # [first chunk, state before, result, demand on the device]
         for g in range(0, n_full, chunks_per_launch):
             before = (self._carry.clone(), self._samples_consumed)
-            res, counts = self._launch(chunks[:, g : g + chunks_per_launch], k, with_count=True)
+            res, demand = self._launch(chunks[:, g : g + chunks_per_launch], k, with_count=True)
             self.adaptive_buckets.add(k)
-            groups.append([g, before, res, torch.stack(counts).max()])
+            groups.append([g, before, res, demand])
 
         if groups:
             demands = torch.stack([e[3] for e in groups]).cpu().numpy().astype(np.int64)
@@ -322,7 +356,8 @@ class StreamingRx:
                     live = (self._carry.clone(), self._samples_consumed, self.start_epoch)
                     self._carry, self._samples_consumed = entry[1]
                     g = entry[0]
-                    entry[2] = self._launch(chunks[:, g : g + chunks_per_launch], k_fix)[0]
+                    entry[2] = self._launch(chunks[:, g : g + chunks_per_launch], k_fix,
+                                            with_count=True)[0]
                     self.adaptive_buckets.add(k_fix)
                     self.adaptive_redos += 1
                     self._carry, self._samples_consumed, self.start_epoch = live
